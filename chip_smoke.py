@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity and combined paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,26 +8,38 @@ toolkit (``nvcc``).  It imports no JAX.  Phases, each of which raises on
 failure (exit code != 0):
 
 1. environment: a CUDA device, the card's name and power limit
-   (``nvidia-smi``), the pipeline built on it with TF32 off;
-2. build: ``nvcc`` compiles the OS-CFAR kernel from ``csrc/`` (timed);
-3. kernel: the CUDA kernel's mask equals its plain PyTorch version's, bit for
-   bit, on quantized exponential maps (ties forced) at B in {1, 7, 1024} of
-   63x70, at the flagship CFAR geometry and a second one, and on maps of
-   other sizes (one window exactly, smaller than a window, larger, and the
-   largest map of a shipped config, 256x192);
-4. slice: ``make_inputs(cfg, 32, seed=7)`` (seeded simulated frames, numpy
-   only) through the pipeline on the GPU and on the CPU (the plain path that
-   the tests hold to the JAX package); the outputs are finite and of the
-   expected shapes, ``count`` and ``valid`` are identical and ``points``
-   agree within ``POINTS_ATOL`` (a stricter bar than the ``pointcloud_f32``
-   gates of the JAX package's ``utils/verify.py``), and the kernel's launch
-   count advanced during the GPU run;
-5. throughput at batch 1024 (``bench.py``'s inputs: standard normal planes,
-   seed 0), timed with CUDA events after warm-up; the CFAR kernel and its
-   plain version timed at [1024, 63, 70], in turns.
+   (``nvidia-smi``), the pipelines built on it with TF32 off;
+2. build: ``nvcc`` compiles both kernels from ``csrc/``, one process each,
+   started together (timed; ptxas registers and spills printed);
+3. CFAR kernel: its mask equals its plain PyTorch version's, bit for bit, on
+   quantized exponential maps (ties forced) at B in {1, 7, 1024} of 63x70,
+   at the flagship CFAR geometry and a second one, and on maps of other
+   sizes (one window exactly, smaller than a window, larger, and the largest
+   map of a shipped config, 256x192);
+4. response kernel: the Doppler-azimuth responses equal their plain version,
+   bit for bit, at B in {1, 7, 1024} of [12, 19*70] with 60 angle bins, at
+   the zoom width nv = 140, at an odd small shape, in the paired (group)
+   layout, and the paired layout equals the unpaired one;
+5. point-cloud slice: ``make_inputs(cfg, 32, seed=7)`` (seeded simulated
+   frames, numpy only) through the pipeline on the GPU and on the CPU (the
+   plain path that the tests hold to the JAX package): ``count`` and
+   ``valid`` identical, ``points`` within ``POINTS_ATOL``;
+6. velocity slice, coarse and precise: the same frames and altitudes on the
+   GPU and on the CPU with the same RANSAC draws (made on the CPU from a
+   seeded generator): ``vx`` within ``VX_ATOL`` on every frame, ``velocity``
+   within 1e-4 and R^2 and inlier fractions within 1e-3 on at least 31 of
+   32 frames (a borderline peak may flip between cuBLAS and the CPU);
+7. combined slice: both halves to the bars of phases 5 and 6;
+8. throughput at batch 1024 (``bench.py``'s inputs: standard normal planes,
+   seed 0, altitude 1.2) of the point-cloud, velocity and combined paths,
+   timed with CUDA events after warm-up, with peak device memory;
+9. each kernel and its plain version timed at the main path's shapes, in
+   turns (plain, kernel, kernel, plain).
 
-Prints JSON lines, then the card's ``nvidia-smi`` line, the kernels line,
-and last ``{"ok": true, "device": {...}}``.
+Each path is run on the GPU with the launch counts set to 0 just before and
+read just after; a path that never launched its kernels fails.  Prints JSON
+lines, then the card's ``nvidia-smi`` line, the kernels line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -35,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,8 +59,20 @@ SECOND_CFAR_PARAMS = dict(num_train=(4, 6), num_guard=(2, 1), rho=0.5, alpha=3.0
 AZ_IDXS, EL_IDXS = (0, 3, 4, 7), (9, 8, 5, 4)
 KERNEL_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/os_cfar_detect.cu"
 KERNEL_REPLACES = "mmwave_radar_processing_tpu/ops/pallas/os_cfar.py:135"
+RESP_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/doppler_az_responses.cu"
+RESP_REPLACES = {
+    "set_responses_pallas_batch": "mmwave_radar_processing_tpu/ops/pallas/doppler_az.py:88",
+    "set_responses_pallas": "mmwave_radar_processing_tpu/ops/pallas/doppler_az.py:149",
+    "group_responses_pallas_batch":
+        "mmwave_radar_processing_tpu/ops/pallas/doppler_az.py:224",
+}
+SETS = ((0, 3, 4, 7), (1, 2, 5, 6), (10, 11, 6, 7), (9, 8, 5, 4))
 #: max |GPU - CPU| of the points: the bar the tests hold the CPU port to vs JAX
 POINTS_ATOL = 1e-5
+#: velocity bars (GPU vs CPU port): those the tests hold the CPU port to vs JAX
+VX_ATOL, VELOCITY_ATOL, STATS_ATOL = 1e-5, 1e-4, 1e-3
+MIN_AGREEING_FRAMES = 31
+RANSAC_SEED = 0
 
 
 def emit(**fields):
@@ -170,23 +195,6 @@ def check_slice(cfg, gpu_pipeline, device):
     return launches
 
 
-def measure_throughput(cfg, gpu_pipeline, device, batch=1024, iters=20):
-    rng = np.random.default_rng(0)
-    shape = (batch, cfg.num_rx_antennas, cfg.num_adc_samples,
-             cfg.chirps_per_frame)
-    raw_re = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-    raw_im = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-    for _ in range(3):
-        gpu_pipeline(raw_re, raw_im)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    ms = cuda_ms(lambda: gpu_pipeline(raw_re, raw_im), iters)
-    emit(phase="throughput", batch=batch, iters=iters, ms_per_batch=ms,
-         frames_per_s=batch / (ms / 1e3),
-         input_mb=2 * raw_re.numel() * 4 / 1e6,
-         peak_mem_mb=torch.cuda.max_memory_allocated(device) / 1e6)
-
-
 def time_cfar(device, batch=1024):
     """Kernel and plain version at [batch, 63, 70], in turns: plain, kernel, kernel, plain."""
     from mmwave_radar_processing_tpu_torch.ops.cfar import (
@@ -207,12 +215,280 @@ def time_cfar(device, batch=1024):
     return res["kernel"], res["plain"]
 
 
+def response_inputs(batch, n_ch, win_rows, nv, fct, fst, seed, device):
+    """Standard normal spectra and a range-window mask divided by its sum."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((2, batch, n_ch, win_rows * nv)).astype(np.float32)
+    mask = (rng.random((batch, win_rows)) < 0.7).astype(np.float32)
+    wgt = mask / np.maximum(mask.sum(1, keepdims=True), 1.0)
+    arrays = [torch.from_numpy(a).to(device) for a in (u[0], u[1], wgt)]
+    return (*arrays, fct, fst)
+
+
+def paired_inputs(args, win_rows, nv):
+    """The paired (group) layout of ``args``: [B, 8, W*2nv], factors [Av, 8]."""
+    u_re, u_im, wgt, fct, fst = args
+    b = u_re.shape[0]
+    idx = torch.tensor(SETS, device=u_re.device)
+
+    def pair(u):
+        g = u.view(b, -1, win_rows, nv)[:, idx].reshape(b, 2, 2, 4, win_rows, nv)
+        return g.permute(0, 1, 3, 4, 2, 5).reshape(b, 8, win_rows * 2 * nv).contiguous()
+
+    cols = [0, 1, 2, 3, 8, 9, 10, 11]
+    return (pair(u_re), pair(u_im), wgt, fct[:, cols].contiguous(),
+            fst[:, cols].contiguous())
+
+
+def check_responses(vel_pipeline, device):
+    """Response kernel vs plain version on the same CUDA tensors, bit for bit.
+
+    Returns the max |kernel - plain| of the unpaired flagship shapes, the zoom
+    width and the paired layout.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import doppler_az
+    from mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az import (
+        doppler_az_responses,
+    )
+
+    fct, fst = vel_pipeline.fct, vel_pipeline.fst  # [60, 16]: the flagship's factors
+    gen = torch.Generator().manual_seed(1)
+    odd_f = [torch.randn(9, 16, generator=gen).to(device) for _ in "cs"]
+    w = vel_pipeline.win_rows
+    cases = [("flagship", (1, 12, w, 70), fct, fst),
+             ("flagship", (7, 12, w, 70), fct, fst),
+             ("flagship", (1024, 12, w, 70), fct, fst),
+             ("zoom", (32, 12, w, 140), fct, fst),
+             ("odd", (3, 12, 5, 16), *odd_f)]
+    errs = {"flagship": 0.0, "zoom": 0.0, "odd": 0.0, "group": 0.0}
+    for i, (kind, (b, c, rows, nv), fc, fs) in enumerate(cases):
+        args = response_inputs(b, c, rows, nv, fc, fs, seed=20 + i, device=device)
+        before = doppler_az_responses.launches
+        got = doppler_az.set_responses(*args, set_idx=SETS, nv=nv)
+        torch.cuda.synchronize()
+        if doppler_az_responses.launches != before + 1:
+            raise RuntimeError(f"response kernel launch not counted at {(b, c, rows, nv)}")
+        want = doppler_az.set_responses_reference(*args, set_idx=SETS, nv=nv)
+        err = float((got - want).abs().max())
+        errs[kind] = max(errs[kind], err)
+        if not torch.equal(got, want):
+            raise RuntimeError(
+                f"response kernel != plain version at {(b, c, rows * nv)}: "
+                f"{int((got != want).sum())} values differ, max |diff| {err}")
+        if not bool((want > 0).any()):
+            raise RuntimeError(f"all-zero responses at {(b, c, rows * nv)}: vacuous")
+        emit(phase="response_kernel", shape=[b, c, rows * nv], nv=nv,
+             n_angles=fc.shape[0], equal=True)
+
+        if kind == "flagship" and b == 7:  # the paired layout of the same spectra
+            paired = paired_inputs(args, rows, nv)
+            before = doppler_az_responses.launches
+            grouped = doppler_az.group_responses(*paired, n_groups=2, n_rx=4,
+                                                 nv2=2 * nv)
+            torch.cuda.synchronize()
+            if doppler_az_responses.launches != before + 1:
+                raise RuntimeError("group response launch not counted")
+            plain = doppler_az.set_responses_reference(
+                *paired, set_idx=doppler_az.group_set_idx(2, 4), nv=2 * nv)
+            errs["group"] = float((grouped - plain).abs().max())
+            sets = torch.stack([grouped[:, 0, :, :nv], grouped[:, 0, :, nv:],
+                                grouped[:, 1, :, :nv], grouped[:, 1, :, nv:]], dim=1)
+            if not (torch.equal(grouped, plain) and torch.equal(sets, got)):
+                raise RuntimeError("paired layout differs from its plain version "
+                                   "or from the unpaired layout")
+            emit(phase="response_kernel", shape=list(paired[0].shape), nv=2 * nv,
+                 layout="paired", equal=True, equal_to_unpaired=True)
+    return errs
+
+
+def velocity_agreement(gpu, cpu):
+    """Per-frame agreement of two VelocityBatch results; raises on a vx miss."""
+    vx_err = (gpu.vx - cpu.vx).abs()
+    ok = (gpu.velocity - cpu.velocity).abs().amax(dim=1) <= VELOCITY_ATOL
+    for name in ("az_r2", "el_r2", "az_inlier", "el_inlier"):
+        ok &= (getattr(gpu, name) - getattr(cpu, name)).abs() <= STATS_ATOL
+    agreeing = int(ok.sum())
+    if not float(vx_err.max()) <= VX_ATOL:
+        raise RuntimeError(f"vx differs between GPU and CPU by {float(vx_err.max())}")
+    if agreeing < MIN_AGREEING_FRAMES:
+        raise RuntimeError(f"only {agreeing} of {ok.numel()} frames agree "
+                           f"(need {MIN_AGREEING_FRAMES})")
+    if not (bool(gpu.vx.any()) and (bool(gpu.az_r2.any()) or bool(gpu.el_r2.any()))):
+        raise RuntimeError("vx or both R^2 are zero on every frame: a vacuous check")
+    for t in gpu:
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite velocity outputs on the GPU")
+    return {"frames_agreeing": agreeing, "vx_max_abs_diff": float(vx_err.max()),
+            "velocity_max_abs_diff": float((gpu.velocity - cpu.velocity).abs().max())}
+
+
+def check_velocity(cfg, device, frames):
+    """Velocity pipeline on the GPU vs the CPU port, coarse and precise.
+
+    Returns the response kernel's launches in each mode's GPU run.
+    """
+    from mmwave_radar_processing_tpu_torch import VelocityBatch, build_velocity_pipeline
+    from mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az import (
+        doppler_az_responses,
+    )
+
+    cpu_in = [torch.from_numpy(a) for a in frames]
+    gpu_in = [t.to(device) for t in cpu_in]
+    launches = {}
+    for mode, precise in (("coarse", False), ("precise", True)):
+        cpu = build_velocity_pipeline(cfg, enable_precise=precise, device="cpu")
+        gpu = build_velocity_pipeline(cfg, enable_precise=precise, device=device)
+        gumbel = cpu.draw_gumbel(len(frames[0]),
+                                 torch.Generator().manual_seed(RANSAC_SEED))
+        g_gpu = gumbel.to(device)
+        torch.cuda.synchronize()
+        doppler_az_responses.launches = 0
+        out_gpu = gpu(*gpu_in, gumbel=g_gpu)
+        torch.cuda.synchronize()
+        launches[mode] = doppler_az_responses.launches
+        if launches[mode] < 1:
+            raise RuntimeError(f"the {mode} velocity path never launched the "
+                               "response kernel")
+        out_cpu = cpu(*cpu_in, gumbel=gumbel)
+        out_gpu = VelocityBatch(*(t.cpu() for t in out_gpu))
+        if tuple(out_gpu.velocity.shape) != (len(frames[0]), 3):
+            raise RuntimeError(f"velocity: shape {tuple(out_gpu.velocity.shape)}")
+        emit(phase="velocity_slice", mode=mode, batch=len(frames[0]),
+             launches=launches[mode], **velocity_agreement(out_gpu, out_cpu),
+             vx_nonzero=int((out_gpu.vx != 0).sum()),
+             az_r2_nonzero=int((out_gpu.az_r2 != 0).sum()),
+             el_r2_nonzero=int((out_gpu.el_r2 != 0).sum()))
+    return launches
+
+
+def check_combined(cfg, device, frames):
+    """Combined pipeline on the GPU vs the CPU port; returns (CFAR, response) launches."""
+    from mmwave_radar_processing_tpu_torch import (
+        PointCloudBatch, VelocityBatch, build_full_pipeline,
+    )
+    from mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az import (
+        doppler_az_responses,
+    )
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import (
+        os_cfar_2d_detect,
+    )
+
+    kw = dict(az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
+              cfar_params=CFAR_PARAMS, max_dets=128)
+    cpu = build_full_pipeline(cfg, device="cpu", **kw)
+    gpu = build_full_pipeline(cfg, device=device, **kw)
+    gumbel = cpu.velocity.draw_gumbel(len(frames[0]),
+                                      torch.Generator().manual_seed(RANSAC_SEED))
+    cpu_in = [torch.from_numpy(a) for a in frames]
+    gpu_in = [t.to(device) for t in cpu_in]
+    g_gpu = gumbel.to(device)
+    torch.cuda.synchronize()
+    os_cfar_2d_detect.launches = doppler_az_responses.launches = 0
+    pc_gpu, vel_gpu = gpu(*gpu_in, gumbel=g_gpu)
+    torch.cuda.synchronize()
+    launches = (os_cfar_2d_detect.launches, doppler_az_responses.launches)
+    if min(launches) < 1:
+        raise RuntimeError(f"the combined path missed a kernel: launches {launches}")
+    pc_cpu, vel_cpu = cpu(*cpu_in, gumbel=gumbel)
+    pc_gpu = PointCloudBatch(*(t.cpu() for t in pc_gpu))
+    vel_gpu = VelocityBatch(*(t.cpu() for t in vel_gpu))
+    if not (torch.equal(pc_gpu.count, pc_cpu.count)
+            and torch.equal(pc_gpu.valid, pc_cpu.valid)):
+        raise RuntimeError("combined: point-cloud count or valid differ from the CPU")
+    pts_err = float((pc_gpu.points - pc_cpu.points).abs().max())
+    if not pts_err <= POINTS_ATOL or int(pc_gpu.count.sum()) == 0:
+        raise RuntimeError(f"combined: points differ by {pts_err} "
+                           f"(count sum {int(pc_gpu.count.sum())})")
+    emit(phase="combined_slice", batch=len(frames[0]), cfar_launches=launches[0],
+         response_launches=launches[1], points_max_abs_diff=pts_err,
+         **velocity_agreement(vel_gpu, vel_cpu))
+    return launches
+
+
+def bench_inputs(cfg, device, batch=1024):
+    """``bench.py``'s inputs: standard normal planes (seed 0), altitude 1.2."""
+    rng = np.random.default_rng(0)
+    shape = (batch, cfg.num_rx_antennas, cfg.num_adc_samples, cfg.chirps_per_frame)
+    raw_re = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    raw_im = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    return raw_re, raw_im, torch.full((batch,), 1.2, device=device)
+
+
+def measure_path(name, fn, device, batch=1024, iters=20):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = cuda_ms(fn, iters)
+    emit(phase="throughput", path=name, batch=batch, iters=iters, ms_per_batch=ms,
+         frames_per_s=batch / (ms / 1e3),
+         peak_mem_mb=torch.cuda.max_memory_allocated(device) / 1e6)
+
+
+def time_responses(vel_pipeline, device, batch=1024):
+    """Kernel and plain version at the main path's shapes, in turns.
+
+    Returns ``{kind: (kernel_ms, plain_ms)}`` for the coarse batch
+    ([B, 12, 19*70]), the zoom pass ([B, 12, 19*140]) and the paired layout
+    ([B, 8, 19*140]).
+    """
+    from mmwave_radar_processing_tpu_torch.ops import doppler_az
+
+    w = vel_pipeline.win_rows
+    coarse = response_inputs(batch, 12, w, 70, vel_pipeline.fct, vel_pipeline.fst,
+                             seed=30, device=device)
+    zoom = response_inputs(batch, 12, w, 140, vel_pipeline.fct, vel_pipeline.fst,
+                           seed=31, device=device)
+    paired = paired_inputs(coarse, w, 70)
+    group = dict(set_idx=doppler_az.group_set_idx(2, 4), nv=140)
+    cases = {"coarse": (coarse, dict(set_idx=SETS, nv=70)),
+             "zoom": (zoom, dict(set_idx=SETS, nv=140)),
+             "group": (paired, group)}
+    res = {}
+    for kind, (args, kw) in cases.items():
+        kernel = lambda: doppler_az.set_responses(*args, **kw)  # noqa: E731
+        plain = lambda: doppler_az.set_responses_reference(*args, **kw)  # noqa: E731
+        for fn in (kernel, plain):
+            fn()
+        times = {"plain": [], "kernel": []}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            times[turn].append(cuda_ms(kernel if turn == "kernel" else plain, 10))
+        res[kind] = (sum(times["kernel"]) / 2, sum(times["plain"]) / 2)
+        emit(phase="response_timing", layout=kind, shape=list(args[0].shape),
+             kernel_ms=res[kind][0], plain_ms=res[kind][1], turns=times)
+    return res
+
+
+def build_kernels():
+    """``nvcc`` for each kernel source, all started together; emits each build."""
+    from mmwave_radar_processing_tpu_torch.ops.kernels import _build
+
+    names = ("os_cfar_detect", "doppler_az_responses")
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(timed, names)))
+    for name, (lib, seconds) in built.items():
+        emit(phase="build", kernel=name, seconds=seconds,
+             library=os.path.relpath(lib, HERE),
+             ptxas=[ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
+                    if "registers" in ln or "spill" in ln])
+    emit(phase="build", wall_seconds=time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
-    from mmwave_radar_processing_tpu_torch import build_point_cloud_pipeline, load_cfg
-    from mmwave_radar_processing_tpu_torch.ops.kernels import _build
+    from mmwave_radar_processing_tpu_torch import (
+        build_full_pipeline, build_point_cloud_pipeline, build_velocity_pipeline,
+        load_cfg, make_inputs,
+    )
 
     device = torch.device("cuda", 0)
     card = gpu_name_and_power_limit()
@@ -220,31 +496,55 @@ def main():
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     cfg = load_cfg(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
-    gpu_pipeline = build_point_cloud_pipeline(
-        cfg, az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
-        cfar_params=CFAR_PARAMS, max_dets=128, device=device)
+    pc_kw = dict(az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
+                 cfar_params=CFAR_PARAMS, max_dets=128)
+    gpu_pipeline = build_point_cloud_pipeline(cfg, device=device, **pc_kw)
+    velocity = build_velocity_pipeline(cfg, device=device)
+    precise = build_velocity_pipeline(cfg, enable_precise=True, device=device)
+    full = build_full_pipeline(cfg, device=device, **pc_kw)
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError("TF32 is on: the port runs full float32 only")
 
-    t0 = time.perf_counter()
-    lib = _build.build("os_cfar_detect")
-    build_s = time.perf_counter() - t0
-    emit(phase="build", seconds=build_s, library=os.path.relpath(lib, HERE),
-         ptxas=[ln for ln in lib.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln or "spill" in ln])
-
+    build_kernels()
     max_err = check_kernel(device)
+    resp_err = check_responses(velocity, device)
     launches = check_slice(cfg, gpu_pipeline, device)
-    measure_throughput(cfg, gpu_pipeline, device)
-    kernel_ms, plain_ms = time_cfar(device)
+    frames = make_inputs(cfg, 32, seed=7)
+    vel_launches = check_velocity(cfg, device, frames)
+    comb_launches = check_combined(cfg, device, frames)
 
+    raw_re, raw_im, alts = bench_inputs(cfg, device)
+    measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
+    measure_path("velocity", lambda: velocity(raw_re, raw_im, alts), device)
+    measure_path("velocity_precise", lambda: precise(raw_re, raw_im, alts), device)
+    measure_path("combined", lambda: full(raw_re, raw_im, alts), device)
+    del raw_re, raw_im, alts
+    kernel_ms, plain_ms = time_cfar(device)
+    resp_ms = time_responses(velocity, device)
+
+    def response_entry(name, kind, n_launches, err_kind):
+        return {"name": f"doppler_az_responses ({name})", "route": "cuda",
+                "source": RESP_SOURCE, "replaces": RESP_REPLACES[name],
+                "launches": n_launches, "max_abs_err": resp_err[err_kind],
+                "ms": resp_ms[kind][0], "plain_ms": resp_ms[kind][1]}
+
+    # one CUDA kernel replaces TPU kernels #4-#6: #4 is the coarse response
+    # of the velocity and combined runs, #5 the precise run (its zoom pass
+    # and its coarse pass), #6 the same kernel in the paired layout, which
+    # the main path does not use: its count is the kernel's over all runs
+    all_resp = vel_launches["coarse"] + vel_launches["precise"] + comb_launches[1]
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES, "launches": launches + comb_launches[0],
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+        response_entry("set_responses_pallas_batch", "coarse",
+                       vel_launches["coarse"] + comb_launches[1], "flagship"),
+        response_entry("set_responses_pallas", "zoom", vel_launches["precise"],
+                       "zoom"),
+        response_entry("group_responses_pallas_batch", "group", all_resp, "group"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

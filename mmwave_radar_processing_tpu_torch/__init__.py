@@ -7,29 +7,45 @@ mirroring its layout module for module.  It imports ``torch`` and never
 ``make_inputs`` (seeded simulated raw frames, numpy only) are re-exported
 here, so a driver of the port names only the port.
 
-What is ported so far is the point-cloud main path (``union`` dataflow):
+What is ported so far: the point-cloud main path (``union`` dataflow), the
+ego-velocity pipeline (coarse and precise) and the combined pipeline.
 
 - ``ops.dft``       — DFT factor matrices and the spectral stages
                       (JAX: ``ops/mxu.py``).
 - ``ops.cfar``      — counting OS-CFAR 2D detection (JAX: ``ops/cfar.py``).
-- ``ops.kernels``   — the hand-written CUDA kernel behind ``ops.cfar`` and its
-                      ``nvcc`` build (JAX: ``ops/pallas/os_cfar.py``).
+- ``ops.doppler_az`` — Doppler-azimuth responses of antenna sub-arrays
+                      (JAX: ``ops/pallas/doppler_az.py``).
+- ``ops.kernels``   — the hand-written CUDA kernels behind ``ops.cfar`` and
+                      ``ops.doppler_az``, and their ``nvcc`` build.
+- ``ops.peaks``     — local maxima and prominent peaks (JAX: ``ops/peaks.py``).
+- ``ops.ransac``    — batched fixed-trial RANSAC (JAX: ``ops/ransac.py``).
 - ``ops.masked``    — fixed-capacity compaction (JAX: ``ops/masked.py``).
-- ``processors``    — ``reformat`` and ``spherical_to_cartesian_flu``.
-- ``parallel.pipeline`` — ``build_point_cloud_pipeline``: raw cubes -> point
-                      clouds, as an ``nn.Module``.
+- ``processors``    — ``reformat``, ``spherical_to_cartesian_flu`` and the
+                      ODS velocity sub-arrays.
+- ``parallel``      — ``build_point_cloud_pipeline``, ``build_velocity_pipeline``
+                      and ``build_full_pipeline``, each an ``nn.Module``.
 
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
 """
 
 from mmwave_radar_processing_tpu.config import RadarConfig, grids, load_cfg
 from mmwave_radar_processing_tpu.utils.verify import make_inputs
+from mmwave_radar_processing_tpu_torch.parallel.full_pipeline import (
+    FullPipeline,
+    build_full_pipeline,
+)
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import (
     PointCloudBatch,
     PointCloudPipeline,
     build_point_cloud_pipeline,
     load_reference_constants,
     set_full_fp32,
+)
+from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import (
+    VelocityBatch,
+    VelocityPipeline,
+    build_velocity_pipeline,
+    load_velocity_constants,
 )
 
 __all__ = [
@@ -42,4 +58,10 @@ __all__ = [
     "build_point_cloud_pipeline",
     "load_reference_constants",
     "set_full_fp32",
+    "VelocityBatch",
+    "VelocityPipeline",
+    "build_velocity_pipeline",
+    "load_velocity_constants",
+    "FullPipeline",
+    "build_full_pipeline",
 ]

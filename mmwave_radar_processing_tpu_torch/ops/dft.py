@@ -1,4 +1,4 @@
-"""DFT-as-matmul spectral stages of the point-cloud path (JAX: ``ops/mxu.py``).
+"""DFT-as-matmul spectral stages (JAX: ``ops/mxu.py``).
 
 The transforms are tiny (63 samples, 70 chirps, 64 angle bins), so each is a
 matrix product with the window and the fftshift folded into a constant
@@ -48,6 +48,30 @@ def dft_factors(
         s = s * window[:, None]
     return (torch.from_numpy(c.astype(np.float32)),
             torch.from_numpy(s.astype(np.float32)))
+
+
+def zoom_dft_factors(
+    f1: torch.Tensor, f2: torch.Tensor, *, n: int, m: int, fs: float,
+    window: Optional[np.ndarray] = None,
+) -> Factors:
+    """Zoom DTFT factors with per-frame band edges (JAX: ``mxu.zoom_dft_factors_dynamic``).
+
+    Frequencies ``f_k = f1 + k*(f2-f1)/m`` (scipy ``ZoomFFT``, endpoint
+    excluded), angles ``2*pi*j*f_k/fs``.  ``f1``, ``f2``: float32 ``[...]``;
+    returns float32 ``(C, S)`` of shape ``[..., n, m]``, built in float32 in
+    the JAX package's order of operations.  ``window`` folds a window over
+    the ``n`` inputs into the matrix.
+    """
+    jv = torch.arange(n, dtype=torch.float32, device=f1.device)[:, None]
+    kv = torch.arange(m, dtype=torch.float32, device=f1.device)[None, :]
+    f1, f2 = f1[..., None, None], f2[..., None, None]
+    freqs = f1 + kv * (f2 - f1) / m
+    ang = 2 * np.pi * jv * freqs / fs
+    c, s = torch.cos(ang), torch.sin(ang)
+    if window is not None:
+        w = torch.as_tensor(np.asarray(window, np.float32), device=f1.device)[:, None]
+        c, s = c * w, s * w
+    return c, s
 
 
 def to_matrix(factors: Factors) -> torch.Tensor:

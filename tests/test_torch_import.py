@@ -7,7 +7,11 @@ import sys
 import pytest
 import torch
 
-from mmwave_radar_processing_tpu_torch import build_point_cloud_pipeline
+from mmwave_radar_processing_tpu_torch import (
+    build_full_pipeline,
+    build_point_cloud_pipeline,
+    build_velocity_pipeline,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,6 +29,17 @@ out = port.build_point_cloud_pipeline(cfg, device="cpu")(
     torch.from_numpy(raw_re), torch.from_numpy(raw_im))
 assert out.points.shape == (1, 128, 4) and out.valid.shape == (1, 128)
 assert int(out.count[0]) > 0 and bool(torch.isfinite(out.points).all())
+alt = torch.full((1,), 1.2)
+for precise in (False, True):
+    vel = port.build_velocity_pipeline(cfg, enable_precise=precise, device="cpu")(
+        torch.from_numpy(raw_re), torch.from_numpy(raw_im), alt)
+    assert vel.velocity.shape == (1, 3) and bool(torch.isfinite(vel.velocity).all())
+pc, vel = port.build_full_pipeline(cfg, device="cpu")(
+    torch.from_numpy(raw_re), torch.from_numpy(raw_im), alt)
+assert torch.equal(pc.count, out.count) and vel.vx.shape == (1,)
+import mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az
+import mmwave_radar_processing_tpu_torch.ops.peaks
+import mmwave_radar_processing_tpu_torch.ops.ransac
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 print("OK", int(out.count[0]))
@@ -49,3 +64,19 @@ def test_cuda_request_raises_without_a_gpu(flagship_config):
 def test_device_is_required(flagship_config):
     with pytest.raises(TypeError):
         build_point_cloud_pipeline(flagship_config)  # no implicit default device
+
+
+@pytest.mark.parametrize("build", [build_velocity_pipeline, build_full_pipeline],
+                         ids=lambda f: f.__name__)
+def test_device_is_required_for_velocity(flagship_config, build):
+    with pytest.raises(TypeError):
+        build(flagship_config)
+
+
+@pytest.mark.parametrize("build", [build_velocity_pipeline, build_full_pipeline],
+                         ids=lambda f: f.__name__)
+def test_cuda_request_raises_without_a_gpu_for_velocity(flagship_config, build):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(flagship_config, device="cuda")

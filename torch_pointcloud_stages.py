@@ -101,13 +101,14 @@ def device_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def busy_share(p, raw_re, raw_im, forwards=10, top=14):
+def busy_share(fn, forwards=10, top=14):
+    """Device kernel time over host wall time for ``forwards`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(forwards):
-            p(raw_re, raw_im)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -182,7 +183,7 @@ def main():
     for _ in range(3):
         p(raw_re, raw_im)
     torch.cuda.synchronize()
-    emit(batch=batch, profile=busy_share(p, raw_re, raw_im))
+    emit(batch=batch, profile=busy_share(lambda: p(raw_re, raw_im)))
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
