@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity and combined paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined and beamforming paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,8 @@ failure (exit code != 0):
 
 1. environment: a CUDA device, the card's name and power limit
    (``nvidia-smi``), the pipelines built on it with TF32 off;
-2. build: ``nvcc`` compiles both kernels from ``csrc/``, one process each,
-   started together (timed; ptxas registers and spills printed);
+2. build: ``nvcc`` compiles every kernel source in ``csrc/``, one process
+   each, started together (timed; ptxas registers and spills printed);
 3. CFAR kernel: its mask equals its plain PyTorch version's, bit for bit, on
    quantized exponential maps (ties forced) at B in {1, 7, 1024} of 63x70,
    at the flagship CFAR geometry and a second one, and on maps of other
@@ -30,10 +30,22 @@ failure (exit code != 0):
    within 1e-4 and R^2 and inlier fractions within 1e-3 on at least 31 of
    32 frames (a borderline peak may flip between cuBLAS and the CPU);
 7. combined slice: both halves to the bars of phases 5 and 6;
-8. throughput at batch 1024 (``bench.py``'s inputs: standard normal planes,
-   seed 0, altitude 1.2) of the point-cloud, velocity and combined paths,
-   timed with CUDA events after warm-up, with peak device memory;
-9. each kernel and its plain version timed at the main path's shapes, in
+8. beamforming kernels: the Capon and Bartlett kernels against their plain
+   versions on the same CUDA tensors (rtol ``BEAMFORM_RTOL``; Bartlett also
+   atol 1e-4 times the map's maximum, and also against the snapshot form
+   ``mean_k |a^H x_k|^2``) at [B, 4, 63, 70] with 64 angles for B in
+   {1, 7, 1024}, at A = 12 (the processors' aperture), A = 7 with the
+   2048-angle azimuth-elevation grid, A = 16 and an odd small shape;
+9. beamforming slice: the same 32 frames through ``build_capon_pipeline``
+   (``capon`` and ``bartlett``) on the GPU and on the CPU port, then both
+   processors on 3 frames (the 12-antenna and the 4-antenna heatmap, and
+   the azimuth-elevation heatmap at each frame's strongest range gate),
+   each within rtol ``MAP_RTOL`` and atol 1e-4 times the map's maximum;
+10. throughput at batch 1024 (``bench.py``'s inputs: standard normal planes,
+   seed 0, altitude 1.2) of the point-cloud, velocity, combined, capon and
+   bartlett paths, timed with CUDA events after warm-up, with peak device
+   memory, and the beamforming paths' range DFT alone;
+11. each kernel and its plain version timed at the main path's shapes, in
    turns (plain, kernel, kernel, plain).
 
 Each path is run on the GPU with the launch counts set to 0 just before and
@@ -66,6 +78,20 @@ RESP_REPLACES = {
     "group_responses_pallas_batch":
         "mmwave_radar_processing_tpu/ops/pallas/doppler_az.py:224",
 }
+BEAMFORM_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/beamform_power.cu"
+BEAMFORM_REPLACES = {
+    "capon_power_pallas": "mmwave_radar_processing_tpu/ops/pallas/capon.py:129",
+    "bartlett_power_pallas_cov": "mmwave_radar_processing_tpu/ops/pallas/capon.py:208",
+    "bartlett_power": "mmwave_radar_processing_tpu/ops/pallas/beamform.py:50",
+}
+#: beamforming kernel vs its plain version: the JAX package's kernel-vs-oracle
+#: bar (tests/test_beamform.py:380,426); Bartlett's covariance form cancels at
+#: deep nulls, so it also gets an atol of 1e-4 times the map's maximum
+BEAMFORM_RTOL = 5e-5
+#: beamforming maps, GPU vs CPU port: the bar the tests hold the CPU port to
+#: vs JAX (rtol, and atol 1e-4 times the map's maximum)
+MAP_RTOL = 1e-4
+LOADING = 1e-2
 SETS = ((0, 3, 4, 7), (1, 2, 5, 6), (10, 11, 6, 7), (9, 8, 5, 4))
 #: max |GPU - CPU| of the points: the bar the tests hold the CPU port to vs JAX
 POINTS_ATOL = 1e-5
@@ -405,6 +431,190 @@ def check_combined(cfg, device, frames):
     return launches
 
 
+def beamform_inputs(b, a, w, k, m, seed, device):
+    """Standard normal complex64 snapshots ``[b, a, w, k]`` and an ``(a, m)`` ULA steering."""
+    from mmwave_radar_processing_tpu_torch.ops import beamform
+
+    rng = np.random.default_rng(seed)
+    planes = rng.standard_normal((2, b, a, w, k)).astype(np.float32)
+    x = torch.complex(torch.from_numpy(planes[0]), torch.from_numpy(planes[1]))
+    steer = beamform.steering_ula(np.linspace(-np.pi, np.pi, m, endpoint=False), a)
+    return x.to(device), steer.to(device)
+
+
+def maps_agree(got, want, rtol, atol_of_max, what):
+    """Raise unless ``|got - want| <= rtol*|want| + atol_of_max*max|want|``; returns max |diff|."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"{what}: shape {tuple(got.shape)}, expected {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    bound = rtol * want.abs() + atol_of_max * float(want.abs().max())
+    if not bool((diff <= bound).all()):
+        raise RuntimeError(f"{what}: {int((diff > bound).sum())} values outside rtol "
+                           f"{rtol} / atol {atol_of_max}*max, max |diff| {float(diff.max())}")
+    return float(diff.max())
+
+
+def check_beamform(device):
+    """Capon and Bartlett kernels vs their plain versions on the same CUDA tensors.
+
+    Returns the max |kernel - plain| of each TPU kernel's entry: Capon and
+    Bartlett (covariance form) at the flagship shapes, and Bartlett against
+    the snapshot form at the processors' shapes (A = 12, the az-el grid).
+    """
+    from mmwave_radar_processing_tpu_torch.ops import beamform
+    from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
+
+    cases = [("flagship", (1, 4, 63, 70, 64)), ("flagship", (7, 4, 63, 70, 64)),
+             ("flagship", (1024, 4, 63, 70, 64)), ("processor", (3, 12, 63, 70, 64)),
+             ("processor", (3, 7, 1, 70, 2048)), ("a16", (3, 16, 5, 50, 64)),
+             ("odd", (2, 5, 3, 33, 31))]
+    errs = {name: 0.0 for name in BEAMFORM_REPLACES}
+    for i, (kind, shape) in enumerate(cases):
+        x, steer = beamform_inputs(*shape, seed=40 + i, device=device)
+        for name, launch in (("capon", bkernel.capon_power),
+                             ("bartlett", bkernel.bartlett_power)):
+            before = launch.launches
+            if name == "capon":
+                got = beamform.capon_power(x, steer, loading=LOADING)
+            else:
+                got = beamform.bartlett_power(x, steer)
+            torch.cuda.synchronize()
+            if launch.launches != before + 1:
+                raise RuntimeError(f"{name} kernel launch not counted at {shape}")
+            if name == "capon":
+                want = beamform.capon_power_reference(x, steer, loading=LOADING)
+                err = maps_agree(got, want, BEAMFORM_RTOL, 0.0, f"capon kernel {shape}")
+                if kind == "flagship":
+                    errs["capon_power_pallas"] = max(errs["capon_power_pallas"], err)
+                fields = {}
+            else:
+                want = beamform.bartlett_power_reference(x, steer)
+                err = maps_agree(got, want, BEAMFORM_RTOL, 1e-4, f"bartlett kernel {shape}")
+                snap = beamform.bartlett_from_snapshots(x.movedim(1, 2), steer)
+                snap_err = maps_agree(got, snap, BEAMFORM_RTOL, 1e-4,
+                                      f"bartlett kernel vs snapshot form {shape}")
+                if kind == "flagship":
+                    errs["bartlett_power_pallas_cov"] = max(
+                        errs["bartlett_power_pallas_cov"], err)
+                if kind == "processor":
+                    errs["bartlett_power"] = max(errs["bartlett_power"], snap_err)
+                fields = {"snapshot_form_max_abs_err": snap_err}
+            emit(phase="beamform_kernel", kernel=name, shape=list(shape[:4]),
+                 n_angles=shape[4], max_abs_err=err,
+                 max_rel_err=float(((got - want).abs() / want.abs()).max()),
+                 rtol=BEAMFORM_RTOL, **fields)
+    return errs
+
+
+def check_beamform_slice(cfg, device, frames):
+    """Beamforming pipelines and processors on the GPU vs the CPU port.
+
+    Returns each run's launches: ``capon`` and ``bartlett`` (pipelines at
+    batch 32), ``capon_processor`` and ``bartlett_processor`` (3 frames).
+    """
+    from mmwave_radar_processing_tpu_torch import (
+        BartlettBeamformerProcessor, CaponBeamformerProcessor, build_capon_pipeline,
+    )
+    from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
+    from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
+
+    cpu_in = [torch.from_numpy(a) for a in frames[:2]]
+    gpu_in = [t.to(device) for t in cpu_in]
+    kernels = {"capon": bkernel.capon_power, "bartlett": bkernel.bartlett_power}
+    launches = {}
+    for method, launch in kernels.items():
+        gpu = build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method=method,
+                                   loading=LOADING, device=device)
+        torch.cuda.synchronize()
+        launch.launches = 0
+        out = gpu(*gpu_in)
+        torch.cuda.synchronize()
+        launches[method] = launch.launches
+        if launches[method] < 1:
+            raise RuntimeError(f"the {method} path never launched its kernel")
+        cpu = build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method=method,
+                                   loading=LOADING, device="cpu")
+        want = cpu(*cpu_in)
+        err = maps_agree(out.cpu(), want, MAP_RTOL, 1e-4, f"{method} pipeline")
+        emit(phase="beamform_slice", path=method, batch=len(frames[0]),
+             launches=launches[method], max_abs_diff=err,
+             max_rel_diff=float(((out.cpu() - want).abs() / want.abs()).max()),
+             map_max=float(want.max()))
+
+    virt = reformat(torch.complex(*cpu_in)[:3], num_rx=cfg.num_rx_antennas,
+                    cfgs_per_loop=cfg.chirp_cfgs_per_loop)  # [3, 12, 63, 70]
+    virt_gpu = virt.to(device)
+    for cls in (CaponBeamformerProcessor, BartlettBeamformerProcessor):
+        launch = kernels[cls._method]
+        procs = [(cls(cfg, device=device), cls(cfg, device="cpu")),
+                 (cls(cfg, antenna_idxs=AZ_IDXS, device=device),
+                  cls(cfg, antenna_idxs=AZ_IDXS, device="cpu"))]
+        wants = [[cpu.process(frame) for _, cpu in procs] for frame in virt]
+        gates = [int(w[0].amax(dim=1).argmax()) for w in wants]
+        torch.cuda.synchronize()
+        launch.launches = 0
+        outs = [[gpu.process(virt_gpu[i]) for gpu, _ in procs]
+                + [procs[0][0].azimuth_elevation_heatmap(virt_gpu[i], gates[i])]
+                for i in range(len(virt))]
+        torch.cuda.synchronize()
+        key = f"{cls._method}_processor"
+        launches[key] = launch.launches
+        if launches[key] != 3 * len(virt):
+            raise RuntimeError(f"{key}: {launches[key]} launches, expected {3 * len(virt)}")
+        errs = []
+        for i, frame in enumerate(virt):
+            for j, want in enumerate(wants[i]):
+                errs.append(maps_agree(outs[i][j].cpu(), want, MAP_RTOL, 1e-4,
+                                       f"{key} heatmap {j}, frame {i}"))
+            az_el = procs[0][1].azimuth_elevation_heatmap(frame, gates[i])
+            errs.append(maps_agree(torch.from_numpy(outs[i][2]), torch.from_numpy(az_el),
+                                   MAP_RTOL, 1e-4, f"{key} az-el, frame {i}"))
+        emit(phase="beamform_processors", processor=cls.__name__, frames=len(virt),
+             launches=launches[key], range_gates=gates, max_abs_diff=max(errs),
+             heatmap_shapes=[list(t.shape) for t in outs[0][:2]],
+             az_el_shape=list(outs[0][2].shape))
+    return launches
+
+
+def time_beamform(capon, raw_re, raw_im):
+    """Each beamforming kernel and its plain version on the range DFT of ``raw``, in turns.
+
+    Returns ``{entry: (kernel_ms, plain_ms)}``: Capon and Bartlett
+    (covariance form) at [1024, 4, 63, 70], and Bartlett on the same data as
+    snapshot blocks [64512, 4, 1, 70] against the snapshot form.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import beamform
+
+    x = capon.range_dft(raw_re, raw_im)  # [1024, 4, 63, 70]
+    steer = capon.steering
+    blocks = x.movedim(1, 2).reshape(-1, x.shape[1], 1, x.shape[3]).contiguous()
+    cases = {
+        "capon_power_pallas": (
+            lambda: beamform.capon_power(x, steer, loading=LOADING),
+            lambda: beamform.capon_power_reference(x, steer, loading=LOADING), x),
+        "bartlett_power_pallas_cov": (
+            lambda: beamform.bartlett_power(x, steer),
+            lambda: beamform.bartlett_power_reference(x, steer), x),
+        "bartlett_power": (
+            lambda: beamform.bartlett_power(blocks, steer),
+            lambda: beamform.bartlett_from_snapshots(blocks[:, :, 0], steer), blocks),
+    }
+    res = {}
+    for name, (kernel, plain, data) in cases.items():
+        for fn in (kernel, plain):
+            fn()
+        times = {"plain": [], "kernel": []}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            times[turn].append(cuda_ms(kernel if turn == "kernel" else plain, 20))
+        res[name] = (sum(times["kernel"]) / 2, sum(times["plain"]) / 2)
+        emit(phase="beamform_timing", replaces=name, shape=list(data.shape),
+             n_angles=steer.shape[1], kernel_ms=res[name][0], plain_ms=res[name][1],
+             turns=times)
+    return res
+
+
 def bench_inputs(cfg, device, batch=1024):
     """``bench.py``'s inputs: standard normal planes (seed 0), altitude 1.2."""
     rng = np.random.default_rng(0)
@@ -463,7 +673,7 @@ def build_kernels():
     """``nvcc`` for each kernel source, all started together; emits each build."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
-    names = ("os_cfar_detect", "doppler_az_responses")
+    names = ("os_cfar_detect", "doppler_az_responses", "beamform_power")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -486,8 +696,8 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
     from mmwave_radar_processing_tpu_torch import (
-        build_full_pipeline, build_point_cloud_pipeline, build_velocity_pipeline,
-        load_cfg, make_inputs,
+        build_capon_pipeline, build_full_pipeline, build_point_cloud_pipeline,
+        build_velocity_pipeline, load_cfg, make_inputs,
     )
 
     device = torch.device("cuda", 0)
@@ -502,6 +712,10 @@ def main():
     velocity = build_velocity_pipeline(cfg, device=device)
     precise = build_velocity_pipeline(cfg, enable_precise=True, device=device)
     full = build_full_pipeline(cfg, device=device, **pc_kw)
+    capon = build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method="capon",
+                                 loading=LOADING, device=device)
+    bartlett = build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method="bartlett",
+                                    device=device)
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError("TF32 is on: the port runs full float32 only")
@@ -513,12 +727,18 @@ def main():
     frames = make_inputs(cfg, 32, seed=7)
     vel_launches = check_velocity(cfg, device, frames)
     comb_launches = check_combined(cfg, device, frames)
+    bf_err = check_beamform(device)
+    bf_launches = check_beamform_slice(cfg, device, frames)
 
     raw_re, raw_im, alts = bench_inputs(cfg, device)
     measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
     measure_path("velocity", lambda: velocity(raw_re, raw_im, alts), device)
     measure_path("velocity_precise", lambda: precise(raw_re, raw_im, alts), device)
     measure_path("combined", lambda: full(raw_re, raw_im, alts), device)
+    measure_path("capon", lambda: capon(raw_re, raw_im), device)
+    measure_path("bartlett", lambda: bartlett(raw_re, raw_im), device)
+    measure_path("beamform_range_dft", lambda: capon.range_dft(raw_re, raw_im), device)
+    bf_ms = time_beamform(capon, raw_re, raw_im)
     del raw_re, raw_im, alts
     kernel_ms, plain_ms = time_cfar(device)
     resp_ms = time_responses(velocity, device)
@@ -528,6 +748,12 @@ def main():
                 "source": RESP_SOURCE, "replaces": RESP_REPLACES[name],
                 "launches": n_launches, "max_abs_err": resp_err[err_kind],
                 "ms": resp_ms[kind][0], "plain_ms": resp_ms[kind][1]}
+
+    def beamform_entry(name, n_launches):
+        return {"name": name, "route": "cuda", "source": BEAMFORM_SOURCE,
+                "replaces": BEAMFORM_REPLACES[name], "launches": n_launches,
+                "max_abs_err": bf_err[name], "ms": bf_ms[name][0],
+                "plain_ms": bf_ms[name][1]}
 
     # one CUDA kernel replaces TPU kernels #4-#6: #4 is the coarse response
     # of the velocity and combined runs, #5 the precise run (its zoom pass
@@ -544,6 +770,14 @@ def main():
         response_entry("set_responses_pallas", "zoom", vel_launches["precise"],
                        "zoom"),
         response_entry("group_responses_pallas_batch", "group", all_resp, "group"),
+        # one CUDA source replaces TPU kernels #7-#9: #7 is the Capon kernel
+        # of the capon pipeline and processor runs, #8 the Bartlett kernel of
+        # the bartlett pipeline run, #9 the same kernel of the Bartlett
+        # processor run (its snapshot-block layout is [N, A, 1, K])
+        beamform_entry("capon_power_pallas",
+                       bf_launches["capon"] + bf_launches["capon_processor"]),
+        beamform_entry("bartlett_power_pallas_cov", bf_launches["bartlett"]),
+        beamform_entry("bartlett_power", bf_launches["bartlett_processor"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,6 +64,17 @@ def set_full_fp32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``: the CPU, or CUDA when a CUDA device is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested, but no CUDA device is "
+                           "available")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 class PointCloudPipeline(nn.Module):
     """``(raw_re, raw_im) float32 [B, rx, ns, nc] -> PointCloudBatch``.
 
@@ -198,12 +209,7 @@ def build_point_cloud_pipeline(
     if aoa_precision != "f32":
         raise ValueError(f"aoa_precision={aoa_precision!r} is not ported: the "
                          "port runs full float32 only ('f32')")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested, but no CUDA device is "
-                           "available")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    device = resolve_device(device)
     set_full_fp32()
     pipeline = PointCloudPipeline(
         cfg,

@@ -44,7 +44,10 @@ from mmwave_radar_processing_tpu_torch.ops.peaks import (
     best_prominent_peak,
     local_maxima,
 )
-from mmwave_radar_processing_tpu_torch.parallel.pipeline import set_full_fp32
+from mmwave_radar_processing_tpu_torch.parallel.pipeline import (
+    resolve_device,
+    set_full_fp32,
+)
 from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
     ODS_AZ_SETS_VIRTUAL,
     ODS_EL_SETS_VIRTUAL,
@@ -402,12 +405,7 @@ def build_velocity_pipeline(
                          "the device decides ('auto')")
     if stop_after not in STOP_AFTER:
         raise ValueError(f"stop_after={stop_after!r}, expected one of {STOP_AFTER}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested, but no CUDA device is "
-                           "available")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
+    device = resolve_device(device)
     set_full_fp32()
     pipeline = VelocityPipeline(
         cfg,

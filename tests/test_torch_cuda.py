@@ -14,14 +14,19 @@ import pytest
 import torch
 
 from mmwave_radar_processing_tpu_torch import (
+    BartlettBeamformerProcessor,
+    CaponBeamformerProcessor,
+    build_capon_pipeline,
     build_point_cloud_pipeline,
     build_velocity_pipeline,
     load_cfg,
     make_inputs,
 )
-from mmwave_radar_processing_tpu_torch.ops import cfar, doppler_az
+from mmwave_radar_processing_tpu_torch.ops import beamform, cfar, doppler_az
+from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as dkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
+from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
 
 pytestmark = pytest.mark.cuda
 
@@ -168,3 +173,120 @@ def test_velocity_on_cuda_matches_cpu_and_launches_the_kernel(cuda, enable_preci
     assert dkernel.doppler_az_responses.launches == (2 if enable_precise else 1)
     torch.testing.assert_close(got.vx.cpu(), want.vx, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.velocity.cpu(), want.velocity, rtol=0, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the Capon and Bartlett kernels
+# --------------------------------------------------------------------------- #
+#: kernel against its plain version: the JAX package's kernel-vs-oracle bar
+#: (tests/test_beamform.py:380,426); Bartlett's covariance form cancels at
+#: deep nulls, hence an atol relative to the map's maximum
+BEAMFORM_RTOL = 5e-5
+BEAMFORM_SHAPES = [(1, 4, 63, 70, 64), (7, 4, 63, 70, 64), (1024, 4, 63, 70, 64),
+                   (2, 12, 63, 70, 64), (3, 7, 1, 70, 2048), (3, 16, 5, 50, 64),
+                   (2, 5, 3, 33, 31)]
+BEAMFORM_IDS = ["b1", "b7", "b1024", "a12", "az_el", "a16", "odd"]
+
+
+def _beamform_inputs(b, a, w, k, m, seed, device):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, a, w, k)) + 1j * rng.standard_normal((b, a, w, k)))
+    steer = beamform.steering_ula(np.linspace(-np.pi, np.pi, m, endpoint=False), a)
+    return torch.from_numpy(x.astype(np.complex64)).to(device), steer.to(device)
+
+
+def _assert_beamform_close(got, want):
+    torch.testing.assert_close(got, want, rtol=BEAMFORM_RTOL,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("shape", BEAMFORM_SHAPES, ids=BEAMFORM_IDS)
+def test_capon_kernel_matches_plain_version(cuda, shape):
+    x, steer = _beamform_inputs(*shape, seed=shape[0], device=cuda)
+    before = bkernel.capon_power.launches
+    got = beamform.capon_power(x, steer, loading=1e-2)
+    torch.cuda.synchronize()
+    assert bkernel.capon_power.launches == before + 1
+    want = beamform.capon_power_reference(x, steer, loading=1e-2)
+    assert got.shape == (shape[0], shape[2], shape[4])
+    torch.testing.assert_close(got, want, rtol=BEAMFORM_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("shape", BEAMFORM_SHAPES, ids=BEAMFORM_IDS)
+def test_bartlett_kernel_matches_both_plain_forms(cuda, shape):
+    x, steer = _beamform_inputs(*shape, seed=shape[0] + 1, device=cuda)
+    before = bkernel.bartlett_power.launches
+    got = beamform.bartlett_power(x, steer)
+    torch.cuda.synchronize()
+    assert bkernel.bartlett_power.launches == before + 1
+    _assert_beamform_close(got, beamform.bartlett_power_reference(x, steer))
+    # TPU kernel #9's plain form, mean_k |a^H x_k|^2
+    _assert_beamform_close(got, beamform.bartlett_from_snapshots(x.movedim(1, 2), steer))
+
+
+@pytest.mark.parametrize("case", ["cpu", "strided", "antennas", "mixed"])
+@pytest.mark.parametrize("fn", ["capon", "bartlett"])
+def test_beamform_kernels_reject_what_they_do_not_take(cuda, case, fn):
+    x, steer = _beamform_inputs(2, 4, 3, 8, 5, seed=0, device=cuda)
+    match = "need CUDA tensors"
+    if case == "cpu":
+        x, steer = x.cpu(), steer.cpu()
+    elif case == "strided":
+        x, match = x.transpose(2, 3), "contiguous"
+    elif case == "antennas":
+        x, steer = _beamform_inputs(1, 17, 3, 8, 5, seed=0, device=cuda)
+        match = "1 to 16"
+    else:
+        steer = steer.cpu()
+    launch = bkernel.capon_power if fn == "capon" else bkernel.bartlett_power
+    before = launch.launches
+    with pytest.raises(ValueError, match=match):
+        launch(x, steer, loading=1e-2) if fn == "capon" else launch(x, steer)
+    assert launch.launches == before
+
+
+def test_beamform_kernels_take_an_empty_batch(cuda):
+    x, steer = _beamform_inputs(0, 4, 63, 70, 64, seed=0, device=cuda)
+    before = (bkernel.capon_power.launches, bkernel.bartlett_power.launches)
+    assert beamform.capon_power(x, steer, loading=1e-2).shape == (0, 63, 64)
+    assert beamform.bartlett_power(x, steer).shape == (0, 63, 64)
+    assert (bkernel.capon_power.launches, bkernel.bartlett_power.launches) == before
+
+
+@pytest.mark.parametrize("method", ["capon", "bartlett"])
+def test_capon_pipeline_on_cuda_matches_cpu_and_launches_the_kernel(cuda, method):
+    cfg = load_cfg(CFG_PATH, array_geometry="ods", array_direction="down")
+    raw_re, raw_im, _ = make_inputs(cfg, 4, seed=7)
+    inputs = [torch.from_numpy(a) for a in (raw_re, raw_im)]
+    want = build_capon_pipeline(cfg, method=method, device="cpu")(*inputs)
+    launch = bkernel.capon_power if method == "capon" else bkernel.bartlett_power
+    launch.launches = 0
+    got = build_capon_pipeline(cfg, method=method, device=cuda)(
+        *(t.to(cuda) for t in inputs))
+    torch.cuda.synchronize()
+    assert launch.launches == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("cls", [BartlettBeamformerProcessor, CaponBeamformerProcessor],
+                         ids=["bartlett", "capon"])
+def test_beamformer_processors_on_cuda_match_cpu(cuda, cls):
+    cfg = load_cfg(CFG_PATH, array_geometry="ods", array_direction="down")
+    raw_re, raw_im, _ = make_inputs(cfg, 1, seed=7)
+    virt = reformat(torch.complex(torch.from_numpy(raw_re), torch.from_numpy(raw_im)),
+                    num_rx=cfg.num_rx_antennas, cfgs_per_loop=cfg.chirp_cfgs_per_loop)[0]
+    cpu, gpu = cls(cfg, device="cpu"), cls(cfg, device=cuda)
+    launch = bkernel.capon_power if cls is CaponBeamformerProcessor \
+        else bkernel.bartlett_power
+    launch.launches = 0
+    heat = gpu.process(virt.to(cuda))
+    az_el = gpu.azimuth_elevation_heatmap(virt, 20)
+    torch.cuda.synchronize()
+    assert launch.launches == 2
+    want = cpu.process(virt)
+    torch.testing.assert_close(heat.cpu(), want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    want_az_el = cpu.azimuth_elevation_heatmap(virt, 20)
+    np.testing.assert_allclose(az_el, want_az_el, rtol=1e-4,
+                               atol=1e-4 * np.abs(want_az_el).max())

@@ -8,6 +8,9 @@ import pytest
 import torch
 
 from mmwave_radar_processing_tpu_torch import (
+    BartlettBeamformerProcessor,
+    CaponBeamformerProcessor,
+    build_capon_pipeline,
     build_full_pipeline,
     build_point_cloud_pipeline,
     build_velocity_pipeline,
@@ -37,9 +40,24 @@ for precise in (False, True):
 pc, vel = port.build_full_pipeline(cfg, device="cpu")(
     torch.from_numpy(raw_re), torch.from_numpy(raw_im), alt)
 assert torch.equal(pc.count, out.count) and vel.vx.shape == (1,)
+re_t, im_t = torch.from_numpy(raw_re), torch.from_numpy(raw_im)
+for method in ("capon", "bartlett"):
+    heat = port.build_capon_pipeline(cfg, method=method, device="cpu")(re_t, im_t)
+    assert heat.shape == (1, 63, 64) and bool(torch.isfinite(heat).all())
+from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
+virt = reformat(torch.complex(re_t, im_t), num_rx=4, cfgs_per_loop=3)[0]
+for cls in (port.BartlettBeamformerProcessor, port.CaponBeamformerProcessor):
+    proc = cls(cfg, device="cpu")
+    assert proc.process(virt).shape == (63, 64)
+    assert proc.azimuth_elevation_heatmap(virt, 20).shape == (64, 32)
+import mmwave_radar_processing_tpu_torch.ops.beamform
+import mmwave_radar_processing_tpu_torch.ops.kernels.beamform
 import mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az
 import mmwave_radar_processing_tpu_torch.ops.peaks
 import mmwave_radar_processing_tpu_torch.ops.ransac
+import mmwave_radar_processing_tpu_torch.parallel.capon_pipeline
+import mmwave_radar_processing_tpu_torch.processors.base
+import mmwave_radar_processing_tpu_torch.processors.beamforming
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 print("OK", int(out.count[0]))
@@ -76,6 +94,15 @@ def test_device_is_required_for_velocity(flagship_config, build):
 @pytest.mark.parametrize("build", [build_velocity_pipeline, build_full_pipeline],
                          ids=lambda f: f.__name__)
 def test_cuda_request_raises_without_a_gpu_for_velocity(flagship_config, build):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(flagship_config, device="cuda")
+
+
+@pytest.mark.parametrize("build", [build_capon_pipeline, BartlettBeamformerProcessor,
+                                   CaponBeamformerProcessor], ids=lambda f: f.__name__)
+def test_cuda_request_raises_without_a_gpu_for_beamforming(flagship_config, build):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
