@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined and beamforming paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming and detector-API paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -41,12 +41,33 @@ failure (exit code != 0):
    processors on 3 frames (the 12-antenna and the 4-antenna heatmap, and
    the azimuth-elevation heatmap at each frame's strongest range gate),
    each within rtol ``MAP_RTOL`` and atol 1e-4 times the map's maximum;
-10. throughput at batch 1024 (``bench.py``'s inputs: standard normal planes,
+10. rank-selection kernels: the OS-CFAR 2D noise map against its plain
+   version (slice-stacked training cells, sorted), equal on every cell, on
+   the maps of phase 3 and a geometry with a zero guard; ``os_2d``'s
+   thresholds equal ``alpha`` times that noise padded with ``+inf``, and
+   ``x > os_2d(x)`` equals the detection kernel's mask bit for bit (the two
+   kernels check each other); the k-th smallest along rows against a sort,
+   equal on every row, at [500, 152] for k in {1, 77, 106, 152}, W in
+   {1, 10, 24, 33, 220, 257} and M in {1, 3, 100003}, with ties and ``+inf``;
+11. detector slice: the same 32 frames, reformatted, frame by frame through
+   ``RangeDetector``, ``RangeDopplerDetector2D`` (OS and CA),
+   ``RangeDopplerDetectorSequential``, ``RangeDopplerGroundDetector`` and
+   ``PointCloudGenerator`` (2D detector with FFT and with Capon angles;
+   ground detector) on the GPU and on the CPU port, fresh stateful objects on
+   each side: detection sets identical, the altitude track within
+   ``ALTITUDE_ATOL`` and points within ``DETECTOR_POINTS_ATOL`` on at least
+   31 of 32 frames;
+12. throughput at batch 1024 (``bench.py``'s inputs: standard normal planes,
    seed 0, altitude 1.2) of the point-cloud, velocity, combined, capon and
    bartlett paths, timed with CUDA events after warm-up, with peak device
-   memory, and the beamforming paths' range DFT alone;
-11. each kernel and its plain version timed at the main path's shapes, in
-   turns (plain, kernel, kernel, plain).
+   memory, and the beamforming paths' range DFT alone; ``os_2d`` plus the
+   compare at 1024 maps; ``PointCloudGenerator.process`` frame by frame
+   over 256 frames (host-limited by nature) with the device's busy share;
+13. each kernel and its plain version timed at the main path's shapes, in
+   turns (plain, kernel, kernel, plain), ``torch.kthvalue`` beside the k-th
+   smallest kernel as its library yardstick, and each kernel's bound: the
+   larger of its bytes (inputs read once, outputs written once) over
+   ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``.
 
 Each path is run on the GPU with the launch counts set to 0 just before and
 read just after; a path that never launched its kernels fails.  Prints JSON
@@ -84,6 +105,27 @@ BEAMFORM_REPLACES = {
     "bartlett_power_pallas_cov": "mmwave_radar_processing_tpu/ops/pallas/capon.py:208",
     "bartlett_power": "mmwave_radar_processing_tpu/ops/pallas/beamform.py:50",
 }
+RANK_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/os_rank_select.cu"
+RANK_REPLACES = {
+    "os_cfar_2d_noise": "mmwave_radar_processing_tpu/ops/pallas/os_cfar.py:218",
+    "kth_smallest": "mmwave_radar_processing_tpu/ops/pallas/rank_select.py:88",
+}
+ZERO_GUARD_CFAR_PARAMS = dict(num_train=(3, 2), num_guard=(0, 0), rho=0.5, alpha=2.0)
+#: published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
+#: and float32 operations outside the tensor cores (an FMA counts as two)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: detector slice, GPU vs CPU port: the golden scenarios' bar on the altitude
+#: track (tests/golden_scenarios.py, altimeter_ods), and on the points ten
+#: times the tests' atol of 1e-5 for the CPU port against the JAX package,
+#: since cuFFT and the CPU FFT round the angle spectra differently
+ALTITUDE_ATOL = 5e-3
+DETECTOR_POINTS_ATOL = 1e-4
+#: the altimeter follows frame-to-frame altitude jumps of the seeded frames
+#: (0.9-1.3 m, independent per frame) only with a wide tracking gate
+SMOKE_ALTIMETER = dict(min_altitude_m=0.25, zoom_search_region_m=0.2,
+                       altitude_search_limit_m=1.5, range_bias=0.0)
+GROUND_VEL_CFAR = dict(num_train=12, num_guard=4, rho=0.5, alpha=15.0)
 #: beamforming kernel vs its plain version: the JAX package's kernel-vs-oracle
 #: bar (tests/test_beamform.py:380,426); Bartlett's covariance form cancels at
 #: deep nulls, so it also gets an atol of 1e-4 times the map's maximum
@@ -221,24 +263,29 @@ def check_slice(cfg, gpu_pipeline, device):
     return launches
 
 
+def timing(kernel_ms, plain_ms, n_bytes, n_ops, library_ms=None):
+    """One kernel's measured times and its bound, as the ``kernels`` line lists them."""
+    bound, by = bound_ms(n_bytes, n_ops)
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
+
+
 def time_cfar(device, batch=1024):
-    """Kernel and plain version at [batch, 63, 70], in turns: plain, kernel, kernel, plain."""
+    """Detection kernel and plain version at [batch, 63, 70], in turns; no library call computes it."""
     from mmwave_radar_processing_tpu_torch.ops.cfar import (
         os_2d_detect, os_2d_detect_reference,
     )
 
     x = quantized_maps(batch, 63, 70, seed=11, device=device)
-    kernel = lambda: os_2d_detect(x, **CFAR_PARAMS)  # noqa: E731
-    plain = lambda: os_2d_detect_reference(x, **CFAR_PARAMS)  # noqa: E731
-    for fn in (kernel, plain):
-        fn()
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        times[name].append(cuda_ms(kernel if name == "kernel" else plain, 50))
-    res = {name: sum(t) / len(t) for name, t in times.items()}
-    emit(phase="cfar_timing", shape=[batch, 63, 70], kernel_ms=res["kernel"],
-         plain_ms=res["plain"], turns=times)
-    return res["kernel"], res["plain"]
+    kernel_ms, plain_ms, turns = take_turns(
+        lambda: os_2d_detect(x, **CFAR_PARAMS),
+        lambda: os_2d_detect_reference(x, **CFAR_PARAMS), 50, 20)
+    n_train, lost_r, lost_d = window_cells(CFAR_PARAMS)
+    cells = batch * (63 - lost_r) * (70 - lost_d)
+    # float32 in, one byte a cell out; a multiply, a compare and an add per training cell
+    res = timing(kernel_ms, plain_ms, 5 * x.numel(), 3 * n_train * cells)
+    emit(phase="cfar_timing", shape=[batch, 63, 70], turns=turns, **res)
+    return res
 
 
 def response_inputs(batch, n_ch, win_rows, nv, fct, fst, seed, device):
@@ -581,9 +628,10 @@ def check_beamform_slice(cfg, device, frames):
 def time_beamform(capon, raw_re, raw_im):
     """Each beamforming kernel and its plain version on the range DFT of ``raw``, in turns.
 
-    Returns ``{entry: (kernel_ms, plain_ms)}``: Capon and Bartlett
-    (covariance form) at [1024, 4, 63, 70], and Bartlett on the same data as
-    snapshot blocks [64512, 4, 1, 70] against the snapshot form.
+    Returns ``{entry: timing}``: Capon and Bartlett (covariance form) at
+    [1024, 4, 63, 70], and Bartlett on the same data as snapshot blocks
+    [64512, 4, 1, 70] against the snapshot form.  No library call computes
+    either function.
     """
     from mmwave_radar_processing_tpu_torch.ops import beamform
 
@@ -602,16 +650,21 @@ def time_beamform(capon, raw_re, raw_im):
             lambda: beamform.bartlett_from_snapshots(blocks[:, :, 0], steer), blocks),
     }
     res = {}
+    b, a, w, k = x.shape
+    m = steer.shape[1]
+    # complex64 in (8 bytes), float32 maps out; per (frame, range bin) the
+    # covariance is A*A*K complex multiply-adds (8 flops each), then Capon
+    # solves L g = a per angle (~4A^2 flops) after an A^3-order Cholesky,
+    # Bartlett forms a^H R a per angle (~8A^2 flops)
+    n_bytes = 8 * x.numel() + 8 * steer.numel() + 4 * b * w * m
+    ops = {"capon_power_pallas": b * w * (8 * a * a * k + 3 * a**3 + m * (4 * a * a + 4 * a)),
+           "bartlett_power_pallas_cov": b * w * (8 * a * a * k + m * (8 * a * a + 2 * a)),
+           "bartlett_power": b * w * (8 * a * a * k + m * (8 * a * a + 2 * a))}
     for name, (kernel, plain, data) in cases.items():
-        for fn in (kernel, plain):
-            fn()
-        times = {"plain": [], "kernel": []}
-        for turn in ("plain", "kernel", "kernel", "plain"):
-            times[turn].append(cuda_ms(kernel if turn == "kernel" else plain, 20))
-        res[name] = (sum(times["kernel"]) / 2, sum(times["plain"]) / 2)
+        kernel_ms, plain_ms, turns = take_turns(kernel, plain, 20, 20)
+        res[name] = timing(kernel_ms, plain_ms, n_bytes, ops[name])
         emit(phase="beamform_timing", replaces=name, shape=list(data.shape),
-             n_angles=steer.shape[1], kernel_ms=res[name][0], plain_ms=res[name][1],
-             turns=times)
+             n_angles=m, turns=turns, **res[name])
     return res
 
 
@@ -638,7 +691,7 @@ def measure_path(name, fn, device, batch=1024, iters=20):
 def time_responses(vel_pipeline, device, batch=1024):
     """Kernel and plain version at the main path's shapes, in turns.
 
-    Returns ``{kind: (kernel_ms, plain_ms)}`` for the coarse batch
+    Returns ``{kind: timing}`` (no library call computes them) for the coarse batch
     ([B, 12, 19*70]), the zoom pass ([B, 12, 19*140]) and the paired layout
     ([B, 8, 19*140]).
     """
@@ -658,22 +711,366 @@ def time_responses(vel_pipeline, device, batch=1024):
     for kind, (args, kw) in cases.items():
         kernel = lambda: doppler_az.set_responses(*args, **kw)  # noqa: E731
         plain = lambda: doppler_az.set_responses_reference(*args, **kw)  # noqa: E731
-        for fn in (kernel, plain):
-            fn()
-        times = {"plain": [], "kernel": []}
-        for turn in ("plain", "kernel", "kernel", "plain"):
-            times[turn].append(cuda_ms(kernel if turn == "kernel" else plain, 10))
-        res[kind] = (sum(times["kernel"]) / 2, sum(times["plain"]) / 2)
+        kernel_ms, plain_ms, turns = take_turns(kernel, plain, 10, 10)
+        out = kernel()
+        n_rx = len(kw["set_idx"][0])
+        # per output and range row: n_rx complex products by a real pair (6
+        # flops) summed (2), a magnitude (4), a weight and a sum (2)
+        res[kind] = timing(kernel_ms, plain_ms,
+                           4 * (sum(t.numel() for t in args) + out.numel()),
+                           out.numel() * w * (8 * n_rx + 4))
         emit(phase="response_timing", layout=kind, shape=list(args[0].shape),
-             kernel_ms=res[kind][0], plain_ms=res[kind][1], turns=times)
+             turns=turns, **res[kind])
     return res
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time for this work: ``(ms, "bytes" | "operations")``."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def window_cells(params):
+    """``(training cells, core rows lost, core columns lost)`` of a 2D CFAR geometry."""
+    (tr, td), (gr, gd) = params["num_train"], params["num_guard"]
+    win_r, win_d = 2 * (tr + gr) + 1, 2 * (td + gd) + 1
+    return win_r * win_d - (2 * gr + 1) * (2 * gd + 1), win_r - 1, win_d - 1
+
+
+def selection_compares(n, k):
+    """Compares that a k-th smallest (1-based) of ``n`` values needs: about ``n + min(k, n-k)``.
+
+    What the function asks for (the expected count of a selection by
+    partitioning), not what a chosen algorithm spends: the bounds of the two
+    rank-selection kernels count this.
+    """
+    return n + min(k, n - k)
+
+
+def take_turns(kernel, plain, kernel_iters, plain_iters, library=None):
+    """Mean ms of ``kernel`` and ``plain`` after a warm-up: plain, kernel, kernel, plain.
+
+    With a ``library`` call it is warmed up like the others and timed inside
+    the turns, at the kernel's iteration count: plain, kernel, library,
+    library, kernel, plain.  Returns ``(kernel_ms, plain_ms, times)``; the
+    library's two readings are ``times["library"]``.
+    """
+    fns = {"kernel": (kernel, kernel_iters), "plain": (plain, plain_iters)}
+    order = ("plain", "kernel", "kernel", "plain")
+    if library is not None:
+        fns["library"] = (library, kernel_iters)
+        order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    for fn, _ in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for turn in order:
+        times[turn].append(cuda_ms(*fns[turn]))
+    return sum(times["kernel"]) / 2, sum(times["plain"]) / 2, times
+
+
+def check_noise_kernel(device):
+    """OS-CFAR 2D noise kernel vs its plain version, equal on every cell; returns max |error|."""
+    from mmwave_radar_processing_tpu_torch.ops import cfar
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import os_cfar_2d_noise
+
+    cases = [(p, (b, 63, 70)) for p in (CFAR_PARAMS, SECOND_CFAR_PARAMS)
+             for b in (1, 7, 1024)]
+    cases += [(ZERO_GUARD_CFAR_PARAMS, (7, 63, 70)),
+              (CFAR_PARAMS, (3, 17, 15)),   # exactly one window
+              (CFAR_PARAMS, (2, 10, 12)),   # smaller than a window: no launch
+              (CFAR_PARAMS, (2, 256, 192))]  # 196 KB: above the 48 KB default
+    max_err = 0.0
+    for i, (params, shape) in enumerate(cases):
+        x = quantized_maps(*shape, seed=60 + i, device=device)
+        n_train, lost_r, lost_d = window_cells(params)
+        k = cfar.os_rank(params["rho"], n_train)
+        before = os_cfar_2d_noise.launches
+        thr, noise = cfar.os_2d(x, **params)
+        torch.cuda.synchronize()
+        launched = os_cfar_2d_noise.launches - before
+        if thr.shape != x.shape or noise.shape != x.shape:
+            raise RuntimeError(f"os_2d: shapes {tuple(thr.shape)}, {tuple(noise.shape)}")
+        if shape[1] <= lost_r or shape[2] <= lost_d:
+            if launched or not (bool(torch.isinf(thr).all()) and bool((noise == 0).all())):
+                raise RuntimeError(f"a map smaller than a window at {shape}: "
+                                   f"{launched} launches, or not all +inf / 0")
+            emit(phase="noise_kernel", shape=list(shape), cfar=params, launches=0)
+            continue
+        if launched != 1:
+            raise RuntimeError(f"noise kernel launch not counted for {shape}")
+        er, ed = lost_r // 2, lost_d // 2
+        core = (slice(None), slice(er, shape[1] - er), slice(ed, shape[2] - ed))
+        want = cfar.os_2d_noise_reference(
+            x, num_train=params["num_train"], num_guard=params["num_guard"], k=k)
+        err = float((noise[core] - want).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(noise[core], want):
+            raise RuntimeError(
+                f"noise kernel != plain version at {shape} {params}: "
+                f"{int((noise[core] != want).sum())} cells differ, max |diff| {err}")
+        padded = torch.full_like(x, float("inf"))
+        padded[core] = params["alpha"] * want
+        zeros = torch.zeros_like(x)
+        zeros[core] = want
+        if not (torch.equal(thr, padded) and torch.equal(noise, zeros)):
+            raise RuntimeError(f"os_2d's padding or scaling is off at {shape}")
+        mask = cfar.os_2d_detect(x, **params)
+        if not torch.equal(x > thr, mask):
+            raise RuntimeError(
+                f"x > os_2d(x) differs from the detection kernel's mask at {shape} "
+                f"{params}: {int(((x > thr) != mask).sum())} cells")
+        emit(phase="noise_kernel", shape=list(shape), cfar=params, k=k, equal=True,
+             detections=int(mask.sum()), equals_detection_kernel=True)
+    return max_err
+
+
+def check_kth_kernel(device):
+    """k-th smallest kernel vs a sort, equal on every row; returns max |error|."""
+    from mmwave_radar_processing_tpu_torch.ops import cfar
+    from mmwave_radar_processing_tpu_torch.ops.kernels.rank_select import kth_smallest
+
+    cases = [((500, 152), (1, 77, 106, 152)), ((1000, 1), (1,)), ((1000, 10), (1, 7, 10)),
+             ((1000, 24), (12,)), ((1000, 220), (154,)), ((1000, 257), (1, 129, 257)),
+             ((1, 24), (12,)), ((3, 220), (154,)), ((100003, 24), (12,)),
+             ((100003, 33), (20,))]
+    max_err = 0.0
+    for i, (shape, ks) in enumerate(cases):
+        x = quantized_maps(1, *shape, seed=80 + i, device=device)[0] - 0.5
+        x[0, ::2] = float("inf")
+        if shape[0] > 2:
+            x[1] = x[1, 0].clone()  # a row of one value: every rank ties
+        for k in ks:
+            before = kth_smallest.launches
+            got = cfar._rank_reduce(x, k)
+            torch.cuda.synchronize()
+            if kth_smallest.launches != before + 1:
+                raise RuntimeError(f"k-th smallest launch not counted at {shape}")
+            want = cfar.kth_smallest_reference(x, k)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"k-th smallest != sort at {shape}, k={k}: "
+                                   f"{int((got != want).sum())} rows differ")
+            finite = torch.isfinite(want)
+            if bool(finite.any()):
+                max_err = max(max_err, float((got[finite] - want[finite]).abs().max()))
+        emit(phase="kth_kernel", shape=list(shape), ks=list(ks), equal=True)
+    return max_err
+
+
+def detector_specs(cfg):
+    """``name -> (constructor taking device, kernel that must launch)`` of the detector slice."""
+    from mmwave_radar_processing_tpu_torch import (
+        PointCloudGenerator, RangeDetector, RangeDopplerDetector2D,
+        RangeDopplerDetectorSequential, RangeDopplerGroundDetector,
+    )
+
+    os2d = dict(cfar_type="os_cfar_2d", cfar_params=CFAR_PARAMS)
+    ground = dict(vel_cfar_type="os_cfar_1d", vel_cfar_params=GROUND_VEL_CFAR,
+                  altimeter_params=SMOKE_ALTIMETER)
+    pcg = dict(az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS)
+    pcg_2d = dict(detector_type="range_doppler_detector_2d", detector_params=os2d, **pcg)
+    return {
+        "range_detector": (lambda d: RangeDetector(cfg, device=d), "kth"),
+        "rd_2d_os": (lambda d: RangeDopplerDetector2D(cfg, device=d, **os2d), "noise"),
+        "rd_2d_ca": (lambda d: RangeDopplerDetector2D(
+            cfg, cfar_type="ca_cfar_2d",
+            cfar_params=dict(num_train=(5, 5), num_guard=(3, 2), pfa=1e-3), device=d), None),
+        "rd_sequential": (lambda d: RangeDopplerDetectorSequential(cfg, device=d), "kth"),
+        "rd_ground": (lambda d: RangeDopplerGroundDetector(cfg, device=d, **ground), "kth"),
+        "pcg_2d_fft": (lambda d: PointCloudGenerator(cfg, device=d, **pcg_2d), "noise"),
+        "pcg_2d_capon": (lambda d: PointCloudGenerator(
+            cfg, aoa_method="capon", device=d, **pcg_2d), "noise"),
+        "pcg_ground": (lambda d: PointCloudGenerator(
+            cfg, detector_type="range_doppler_ground_detector", detector_params=ground,
+            device=d, **pcg), "kth"),
+    }
+
+
+def check_detector_slice(cfg, device, frames):
+    """The detector API frame by frame on the GPU vs the CPU port.
+
+    Returns the launches of the two rank-selection kernels over the GPU runs:
+    ``{"noise": n, "kth": n}``.
+    """
+    from mmwave_radar_processing_tpu_torch import VirtualArrayReformatter
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import os_cfar_2d_noise
+    from mmwave_radar_processing_tpu_torch.ops.kernels.rank_select import kth_smallest
+
+    raw = torch.complex(torch.from_numpy(frames[0]), torch.from_numpy(frames[1]))
+    virt = VirtualArrayReformatter(cfg, device="cpu").process(raw)  # [32, 12, 63, 70]
+    virt_gpu = VirtualArrayReformatter(cfg, device=device).process(raw.to(device))
+    if not torch.equal(virt_gpu.cpu(), virt):
+        raise RuntimeError("the reformatted cubes differ between GPU and CPU")
+    n = len(virt)
+    counters = {"noise": os_cfar_2d_noise, "kth": kth_smallest}
+    totals = {"noise": 0, "kth": 0}
+    for name, (make, needs) in detector_specs(cfg).items():
+        gpu, cpu = make(device), make("cpu")
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+        got = [gpu.process(virt_gpu[i]) for i in range(n)]
+        torch.cuda.synchronize()
+        launches = {key: c.launches for key, c in counters.items()}
+        want = [cpu.process(virt[i]) for i in range(n)]
+        is_points = name.startswith("pcg")
+        agree, worst = 0, 0.0
+        for g, c in zip(got, want):
+            if g.shape != c.shape:
+                continue
+            if is_points:
+                if not np.isfinite(g).all():
+                    raise RuntimeError(f"{name}: non-finite points on the GPU")
+                diff = float(np.abs(g - c).max()) if g.size else 0.0
+                worst = max(worst, diff)
+                agree += diff <= DETECTOR_POINTS_ATOL
+            else:
+                agree += np.array_equal(g, c)
+        fields = {}
+        if "ground" in name:
+            tracker = lambda o: (o.detector if is_points else o).altimeter  # noqa: E731
+            alt = [t.current_altitude_measured_m for t in (tracker(gpu), tracker(cpu))]
+            fields["final_altitude_m"] = alt
+            if not abs(alt[0] - alt[1]) <= ALTITUDE_ATOL or not alt[1] > 0.5:
+                raise RuntimeError(f"{name}: final altitudes {alt} differ or never "
+                                   "left the start")
+        total = int(sum(len(c) for c in want))
+        emit(phase="detector_slice", detector=name, frames=n, frames_agreeing=int(agree),
+             detections=total, launches=launches,
+             **({"points_max_abs_diff": worst} if is_points else {}), **fields)
+        if agree < MIN_AGREEING_FRAMES:
+            raise RuntimeError(f"{name}: only {agree} of {n} frames agree with the CPU port")
+        if total == 0:
+            raise RuntimeError(f"{name}: no detections: a vacuous check")
+        if needs == "noise" and launches["noise"] != n:
+            raise RuntimeError(f"{name}: {launches['noise']} noise-kernel launches "
+                               f"for {n} frames, expected one a frame")
+        if needs == "kth" and launches["kth"] < n:
+            raise RuntimeError(f"{name}: {launches['kth']} k-th-smallest launches "
+                               f"for {n} frames")
+        for key in totals:
+            totals[key] += launches[key]
+    return totals
+
+
+def check_altitude_track(cfg, device, frames):
+    """``Altimeter.scan`` over the 32 frames on the GPU vs the CPU port, frame by frame."""
+    from mmwave_radar_processing_tpu_torch import Altimeter, VirtualArrayReformatter
+
+    raw = torch.complex(torch.from_numpy(frames[0]), torch.from_numpy(frames[1]))
+    virt = VirtualArrayReformatter(cfg, device="cpu").process(raw)
+    _, cpu = Altimeter(cfg, device="cpu", **SMOKE_ALTIMETER).scan(virt)
+    _, gpu = Altimeter(cfg, device=device, **SMOKE_ALTIMETER).scan(virt.to(device))
+    diff = (gpu.cpu() - cpu).abs()
+    agree = int((diff <= ALTITUDE_ATOL).sum())
+    emit(phase="altitude_track", frames=len(cpu), frames_agreeing=agree,
+         max_abs_diff_m=float(diff.max()), track_min_m=float(cpu.min()),
+         track_max_m=float(cpu.max()), atol_m=ALTITUDE_ATOL)
+    if agree < MIN_AGREEING_FRAMES:
+        raise RuntimeError(f"altitude track: only {agree} of {len(cpu)} frames agree")
+    if not float(cpu.max() - cpu.min()) > 0.05:
+        raise RuntimeError("the altitude track never moved: a vacuous check")
+
+
+def time_noise(device, batch=1024):
+    """Noise kernel and plain version at [batch, 63, 70]; also ``os_2d`` plus the compare.
+
+    Returns the kernel's ``timing``; no library call computes the function.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import cfar
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import os_cfar_2d_noise
+
+    x = quantized_maps(batch, 63, 70, seed=12, device=device)
+    n_train, lost_r, lost_d = window_cells(CFAR_PARAMS)
+    geometry = dict(num_train=CFAR_PARAMS["num_train"], num_guard=CFAR_PARAMS["num_guard"],
+                    k=cfar.os_rank(CFAR_PARAMS["rho"], n_train))
+    kernel_ms, plain_ms, turns = take_turns(
+        lambda: os_cfar_2d_noise(x, **geometry),
+        lambda: cfar.os_2d_noise_reference(x, **geometry), 10, 2)
+    cells = batch * (63 - lost_r) * (70 - lost_d)
+    # the bound counts the compares a selection needs; the kernel's own bitwise
+    # search spends 32 passes of a compare and an add per training cell
+    res = timing(kernel_ms, plain_ms, 4 * (x.numel() + cells),
+                 selection_compares(n_train, geometry["k"]) * cells)
+    detect_ms = cuda_ms(lambda: x > cfar.os_2d(x, **CFAR_PARAMS)[0], 10)
+    emit(phase="noise_timing", shape=[batch, 63, 70], turns=turns,
+         os_2d_and_compare_ms=detect_ms, kernel_own_ops=32 * 2 * n_train * cells, **res)
+    return res
+
+
+def time_kth(device):
+    """k-th smallest kernel, a sort and ``torch.kthvalue`` at two of the path's shapes.
+
+    ``[168448, 220]``, k = 154: the training cells of 64 flagship maps;
+    ``[1024*63*38, 24]``, k = 12: 1024 frames of the ground detector's
+    velocity CFAR.  Returns ``{"narrow" | "wide": timing}``, with
+    ``torch.kthvalue`` as the library call.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import cfar
+
+    res = {}
+    for name, (m, w, k) in (("wide", (168448, 220, 154)),
+                            ("narrow", (1024 * 63 * 38, 24, 12))):
+        gen = torch.Generator(device=device).manual_seed(w)
+        x = torch.empty((m, w), device=device).exponential_(generator=gen)
+        library = lambda: torch.kthvalue(x, k, dim=-1).values  # noqa: E731
+        if not torch.equal(library(), cfar._rank_reduce(x, k)):
+            raise RuntimeError(f"torch.kthvalue disagrees with the kernel at {(m, w)}")
+        kernel_ms, plain_ms, turns = take_turns(
+            lambda: cfar._rank_reduce(x, k),
+            lambda: cfar.kth_smallest_reference(x, k), 10, 3, library=library)
+        # the bound counts the compares a selection needs; the kernel's own
+        # bitwise search spends 32 passes of a compare and an add per element
+        res[name] = timing(kernel_ms, plain_ms, 4 * m * (w + 1),
+                           selection_compares(w, k) * m,
+                           library_ms=sum(turns["library"]) / 2)
+        emit(phase="kth_timing", shape=[m, w], k=k, library="torch.kthvalue",
+             turns=turns, kernel_own_ops=32 * 2 * w * m, **res[name])
+        del x
+    return res
+
+
+def measure_detector_api(cfg, device, frames, n_frames=256):
+    """Frames/s of ``PointCloudGenerator.process`` frame by frame: host-limited by nature."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmwave_radar_processing_tpu_torch import VirtualArrayReformatter
+
+    raw = torch.complex(torch.from_numpy(frames[0]), torch.from_numpy(frames[1])).to(device)
+    virt = VirtualArrayReformatter(cfg, device=device).process(raw)
+    for name in ("pcg_2d_fft", "pcg_2d_capon", "pcg_ground"):
+        pcg = detector_specs(cfg)[name][0](device)
+        for i in range(8):
+            pcg.process(virt[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_frames):
+            pcg.process(virt[i % len(virt)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(len(virt)):
+                pcg.process(virt[i])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = [(getattr(e, "self_device_time_total", 0.0) or 0.0, e.key, e.count)
+                for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))]
+        kernel_us = sum(us for us, _, _ in rows)
+        emit(phase="detector_api_throughput", path=name, frames=n_frames,
+             ms_per_frame=seconds / n_frames * 1e3, frames_per_s=n_frames / seconds,
+             limited_by="host", device_busy_share_under_profiler=kernel_us / wall_us,
+             device_kernels_per_frame=sum(n for _, _, n in rows) / len(virt),
+             device_us_per_frame=kernel_us / len(virt),
+             top_kernels=[{"us_per_frame": us / len(virt), "name": key[:60]}
+                          for us, key, _ in sorted(rows, reverse=True)[:3]])
 
 
 def build_kernels():
     """``nvcc`` for each kernel source, all started together; emits each build."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
-    names = ("os_cfar_detect", "doppler_az_responses", "beamform_power")
+    names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -729,6 +1126,10 @@ def main():
     comb_launches = check_combined(cfg, device, frames)
     bf_err = check_beamform(device)
     bf_launches = check_beamform_slice(cfg, device, frames)
+    noise_err = check_noise_kernel(device)
+    kth_err = check_kth_kernel(device)
+    rank_launches = check_detector_slice(cfg, device, frames)
+    check_altitude_track(cfg, device, frames)
 
     raw_re, raw_im, alts = bench_inputs(cfg, device)
     measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
@@ -740,20 +1141,27 @@ def main():
     measure_path("beamform_range_dft", lambda: capon.range_dft(raw_re, raw_im), device)
     bf_ms = time_beamform(capon, raw_re, raw_im)
     del raw_re, raw_im, alts
-    kernel_ms, plain_ms = time_cfar(device)
+    measure_detector_api(cfg, device, frames)
+    cfar_ms = time_cfar(device)
     resp_ms = time_responses(velocity, device)
+    noise_ms = time_noise(device)
+    kth_ms = time_kth(device)
 
     def response_entry(name, kind, n_launches, err_kind):
         return {"name": f"doppler_az_responses ({name})", "route": "cuda",
                 "source": RESP_SOURCE, "replaces": RESP_REPLACES[name],
                 "launches": n_launches, "max_abs_err": resp_err[err_kind],
-                "ms": resp_ms[kind][0], "plain_ms": resp_ms[kind][1]}
+                **resp_ms[kind]}
 
     def beamform_entry(name, n_launches):
         return {"name": name, "route": "cuda", "source": BEAMFORM_SOURCE,
                 "replaces": BEAMFORM_REPLACES[name], "launches": n_launches,
-                "max_abs_err": bf_err[name], "ms": bf_ms[name][0],
-                "plain_ms": bf_ms[name][1]}
+                "max_abs_err": bf_err[name], **bf_ms[name]}
+
+    def rank_entry(name, n_launches, err, times):
+        return {"name": name, "route": "cuda", "source": RANK_SOURCE,
+                "replaces": RANK_REPLACES[name], "launches": n_launches,
+                "max_abs_err": err, **times}
 
     # one CUDA kernel replaces TPU kernels #4-#6: #4 is the coarse response
     # of the velocity and combined runs, #5 the precise run (its zoom pass
@@ -764,7 +1172,13 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches + comb_launches[0],
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms},
+         "max_abs_err": max_err, **cfar_ms},
+        # TPU kernels #2 and #3, over the detector slice's runs; #3 is timed
+        # at the ground detector's width (its times at [168448, 220] are
+        # under "wide")
+        rank_entry("os_cfar_2d_noise", rank_launches["noise"], noise_err, noise_ms),
+        rank_entry("kth_smallest", rank_launches["kth"], kth_err,
+                   {**kth_ms["narrow"], "wide": kth_ms["wide"]}),
         response_entry("set_responses_pallas_batch", "coarse",
                        vel_launches["coarse"] + comb_launches[1], "flagship"),
         response_entry("set_responses_pallas", "zoom", vel_launches["precise"],

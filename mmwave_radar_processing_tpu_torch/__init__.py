@@ -1,19 +1,27 @@
 """mmwave_radar_processing_tpu_torch — the PyTorch/CUDA port of the radar framework.
 
 A second package beside the JAX reference ``mmwave_radar_processing_tpu``,
-mirroring its layout module for module.  It imports ``torch`` and never
-``jax``; the jax-free host layers of the JAX package (``config``, ``data``,
-``utils.verify``) are reused by import, not copied: ``load_cfg`` and
-``make_inputs`` (seeded simulated raw frames, numpy only) are re-exported
-here, so a driver of the port names only the port.
+mirroring its layout module for module.  It imports ``torch``, never ``jax``
+and nothing of the JAX package: the host layers it needs (``config``,
+``data.simulator``, ``utils.verify.make_inputs``; numpy only) are its own
+copies, held bit-equal to the originals by the tests.  ``load_cfg`` and
+``make_inputs`` (seeded simulated raw frames) are exported here, so a script
+that runs the port names only the port.
 
 What is ported so far: the point-cloud main path (``union`` dataflow), the
-ego-velocity pipeline (coarse and precise), the combined pipeline, and the
-Capon/Bartlett beamforming path (batched pipeline and per-frame processors).
+ego-velocity pipeline (coarse and precise), the combined pipeline, the
+Capon/Bartlett beamforming path (batched pipeline and per-frame processors),
+and the detector API (CFAR threshold maps, the CFAR detector classes, the
+range and range-Doppler detectors, the altimeter and the point-cloud
+generator).  Every ``build_*`` function and class takes an explicit ``device``.
 
+- ``config``, ``data``, ``utils.verify`` — configuration parsing and grids,
+                      the scene simulator, seeded input frames.
 - ``ops.dft``       — DFT factor matrices and the spectral stages
                       (JAX: ``ops/mxu.py``).
-- ``ops.cfar``      — counting OS-CFAR 2D detection (JAX: ``ops/cfar.py``).
+- ``ops.cfar``      — CA/GO/SO/OS threshold maps, 1D and 2D, and counting
+                      OS-CFAR detection (JAX: ``ops/cfar.py``).
+- ``ops.czt``       — chirp-z (zoom) transform (JAX: ``ops/czt.py``).
 - ``ops.doppler_az`` — Doppler-azimuth responses of antenna sub-arrays
                       (JAX: ``ops/pallas/doppler_az.py``).
 - ``ops.beamform``  — steering matrices, covariance, Bartlett and Capon
@@ -25,9 +33,12 @@ Capon/Bartlett beamforming path (batched pipeline and per-frame processors).
 - ``ops.peaks``     — local maxima and prominent peaks (JAX: ``ops/peaks.py``).
 - ``ops.ransac``    — batched fixed-trial RANSAC (JAX: ``ops/ransac.py``).
 - ``ops.masked``    — fixed-capacity compaction (JAX: ``ops/masked.py``).
-- ``processors``    — ``reformat``, ``spherical_to_cartesian_flu``, the
-                      ODS velocity sub-arrays, the ``Processor`` base and the
-                      Bartlett and Capon beamformer processors.
+- ``detectors``     — the six CFAR detector classes and their registry.
+- ``processors``    — ``VirtualArrayReformatter``, ``RangeProcessor``,
+                      ``RangeDopplerProcessor``, ``Altimeter``,
+                      ``RangeDetector``, the range-Doppler detectors,
+                      ``PointCloudGenerator``, the ODS velocity sub-arrays
+                      and the Bartlett and Capon beamformer processors.
 - ``parallel``      — ``build_point_cloud_pipeline``, ``build_velocity_pipeline``,
                       ``build_full_pipeline`` and ``build_capon_pipeline``,
                       each an ``nn.Module``.
@@ -35,8 +46,8 @@ Capon/Bartlett beamforming path (batched pipeline and per-frame processors).
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
 """
 
-from mmwave_radar_processing_tpu.config import RadarConfig, grids, load_cfg
-from mmwave_radar_processing_tpu.utils.verify import make_inputs
+from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids, load_cfg
+from mmwave_radar_processing_tpu_torch.utils.verify import make_inputs
 from mmwave_radar_processing_tpu_torch.parallel.capon_pipeline import (
     CaponPipeline,
     build_capon_pipeline,
@@ -59,9 +70,22 @@ from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import (
     build_velocity_pipeline,
     load_velocity_constants,
 )
-from mmwave_radar_processing_tpu_torch.processors.beamforming import (
+from mmwave_radar_processing_tpu_torch.detectors import get_detector_registry
+from mmwave_radar_processing_tpu_torch.processors import (
+    Altimeter,
+    AltimeterState,
     BartlettBeamformerProcessor,
     CaponBeamformerProcessor,
+    PointCloudGenerator,
+    RangeDetector,
+    RangeDopplerDetector2D,
+    RangeDopplerDetectorSequential,
+    RangeDopplerGroundDetector,
+    RangeDopplerProcessor,
+    RangeProcessor,
+    VirtualArrayReformatter,
+    get_range_doppler_detector_registry,
+    load_detection_constants,
 )
 
 __all__ = [
@@ -85,4 +109,17 @@ __all__ = [
     "load_capon_constants",
     "BartlettBeamformerProcessor",
     "CaponBeamformerProcessor",
+    "get_detector_registry",
+    "VirtualArrayReformatter",
+    "RangeProcessor",
+    "RangeDopplerProcessor",
+    "Altimeter",
+    "AltimeterState",
+    "RangeDetector",
+    "RangeDopplerDetector2D",
+    "RangeDopplerDetectorSequential",
+    "RangeDopplerGroundDetector",
+    "get_range_doppler_detector_registry",
+    "PointCloudGenerator",
+    "load_detection_constants",
 ]

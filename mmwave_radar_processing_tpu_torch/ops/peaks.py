@@ -1,8 +1,9 @@
 """Peak picking with prominences along the last axis (JAX: ``ops/peaks.py``).
 
-What the velocity path uses: strict local maxima, and the highest local
-maximum whose topographic prominence (scipy's definition, full window)
-reaches a floor.  Every step is a comparison, a sort or a min/max, so the
+What the velocity path and the altimeter use: strict local maxima, the
+highest local maximum whose topographic prominence (scipy's definition, full
+window) reaches a floor, and the strongest such peaks within a band below the
+highest.  Every step is a comparison, a sort or a min/max, so the
 indices and the ``found`` flags equal the JAX package's exactly, ties
 included.  The JAX functions work on one row under ``vmap``; here every
 function takes ``[..., N]`` and works on all leading rows at once.
@@ -82,3 +83,35 @@ def best_prominent_peak(
     vmax = torch.where(passing, cand_vals, float("-inf")).amax(dim=-1, keepdim=True)
     best = torch.where(passing & (cand_vals == vmax), cand_idx, n).amin(dim=-1)
     return torch.where(best < n, best, 0), passing.any(dim=-1)
+
+
+def top_peaks_within_threshold(
+    x_db: torch.Tensor, max_peaks: int, min_prominence: float = 6.0,
+    threshold_db: float = 20.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Strongest prominent peaks within ``threshold_db`` of the highest one.
+
+    Local maxima of prominence ``>= min_prominence``, less those more than
+    ``threshold_db`` below the strongest; the ``max_peaks`` largest, by
+    descending value (ties by ascending index, as ``lax.top_k`` orders them).
+    ``[..., N] -> (indices int64, values, valid bool)``, each
+    ``[..., max_peaks]``; slots past the last peak hold index 0, value 0 and
+    ``valid`` False.
+    """
+    cand_vals, cand_idx = _candidate_peaks(x_db)
+    prom = _prominences_at(x_db, cand_vals, cand_idx)
+    passing = torch.isfinite(cand_vals) & (prom >= min_prominence)
+    max_val = torch.where(passing, cand_vals, float("-inf")).amax(dim=-1, keepdim=True)
+    passing = passing & (cand_vals >= max_val - threshold_db)
+    vals = torch.where(passing, cand_vals, float("-inf"))
+    k = min(max_peaks, vals.shape[-1])
+    top_vals, sel = torch.sort(vals, dim=-1, descending=True, stable=True)
+    top_vals, sel = top_vals[..., :k], sel[..., :k]
+    valid = torch.isfinite(top_vals)
+    top_idx = torch.where(valid, torch.gather(cand_idx, -1, sel), 0)
+    if k < max_peaks:  # a row shorter than the requested number of peaks
+        pad = (0, max_peaks - k)
+        top_vals = torch.nn.functional.pad(top_vals, pad, value=float("-inf"))
+        top_idx = torch.nn.functional.pad(top_idx, pad)
+        valid = torch.nn.functional.pad(valid, pad)
+    return top_idx, torch.where(valid, top_vals, 0.0), valid

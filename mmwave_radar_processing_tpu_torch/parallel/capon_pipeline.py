@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmwave_radar_processing_tpu.config import RadarConfig, grids
+from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import beamform as bf, dft
 from mmwave_radar_processing_tpu_torch.ops.windows import hanning
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import (

@@ -14,7 +14,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mmwave_radar_processing_tpu.config import RadarConfig
+from mmwave_radar_processing_tpu_torch.config import RadarConfig
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import (
     PointCloudBatch,
     PointCloudPipeline,

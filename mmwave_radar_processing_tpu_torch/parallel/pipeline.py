@@ -25,10 +25,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmwave_radar_processing_tpu.config import RadarConfig, grids
+from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import dft
 from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect
 from mmwave_radar_processing_tpu_torch.ops.masked import mask_to_indices_2d
+from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     spherical_to_cartesian_flu,
 )
@@ -62,17 +63,6 @@ def set_full_fp32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``: the CPU, or CUDA when a CUDA device is present."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested, but no CUDA device is "
-                           "available")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class PointCloudPipeline(nn.Module):

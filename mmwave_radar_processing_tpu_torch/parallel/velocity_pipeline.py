@@ -37,7 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmwave_radar_processing_tpu.config import RadarConfig, grids
+from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import dft, ransac
 from mmwave_radar_processing_tpu_torch.ops.doppler_az import set_responses
 from mmwave_radar_processing_tpu_torch.ops.peaks import (

@@ -1,8 +1,8 @@
 """Processor base (JAX: ``processors/base.py``): config-bound objects with host-side history.
 
-A copy of the JAX package's 42-line numpy base.  It cannot be imported from
-there: ``mmwave_radar_processing_tpu/processors/__init__.py`` imports every
-processor and so imports JAX.
+The port's own copy of the JAX package's numpy base (the port imports
+nothing of that package), plus the helpers every device-bound processor uses
+to take its inputs to its device.
 
 - configuration is an immutable :class:`RadarConfig` plus constants bound at
   construction;
@@ -15,8 +15,34 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
-from mmwave_radar_processing_tpu.config import RadarConfig
+from mmwave_radar_processing_tpu_torch.config import RadarConfig
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``: the CPU, or CUDA when a CUDA device is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested, but no CUDA device is "
+                           "available")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def as_complex64(adc_cube, device: torch.device) -> torch.Tensor:
+    """A complex cube (tensor or numpy, any complex width) as complex64 on ``device``."""
+    if not isinstance(adc_cube, torch.Tensor):
+        adc_cube = torch.from_numpy(np.array(adc_cube, np.complex64))
+    return adc_cube.to(device, torch.complex64)
+
+
+def as_float32(x, device: torch.device) -> torch.Tensor:
+    """A real signal (tensor or numpy, any float width) as float32 on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, np.float32))
+    return x.to(device, torch.float32)
 
 
 class Processor:

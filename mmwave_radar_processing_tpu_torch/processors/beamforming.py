@@ -19,11 +19,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mmwave_radar_processing_tpu.config import RadarConfig, grids
+from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import beamform as bf, dft
 from mmwave_radar_processing_tpu_torch.ops.windows import hanning
-from mmwave_radar_processing_tpu_torch.parallel.pipeline import resolve_device
-from mmwave_radar_processing_tpu_torch.processors.base import Processor
+from mmwave_radar_processing_tpu_torch.processors.base import (
+    Processor,
+    as_complex64,
+    resolve_device,
+)
 
 # Flagship 6843 ODS antenna subsets (hardcoded in the reference consumers)
 ODS_AZ_IDXS = (0, 3, 4, 7)
@@ -107,9 +110,7 @@ class _CovarianceBeamformerProcessor(Processor):
     # ------------------------------------------------------------------ #
     def _as_complex(self, adc_cube) -> torch.Tensor:
         """A complex cube (tensor or numpy) as complex64 on the processor's device."""
-        if not isinstance(adc_cube, torch.Tensor):
-            adc_cube = torch.from_numpy(np.array(adc_cube, np.complex64))
-        return adc_cube.to(self.device, torch.complex64)
+        return as_complex64(adc_cube, self.device)
 
     def _range_dft(self, cube: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Windowed range DFT of the antennas ``idx``: ``[A, ns, K]``."""

@@ -26,6 +26,12 @@ from mmwave_radar_processing_tpu_torch.ops import beamform, cfar, doppler_az
 from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as dkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
+from mmwave_radar_processing_tpu_torch.ops.kernels import rank_select
+from mmwave_radar_processing_tpu_torch.processors import (
+    PointCloudGenerator,
+    RangeDetector,
+    RangeDopplerDetectorSequential,
+)
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
 
 pytestmark = pytest.mark.cuda
@@ -290,3 +296,164 @@ def test_beamformer_processors_on_cuda_match_cpu(cuda, cls):
     want_az_el = cpu.azimuth_elevation_heatmap(virt, 20)
     np.testing.assert_allclose(az_el, want_az_el, rtol=1e-4,
                                atol=1e-4 * np.abs(want_az_el).max())
+
+
+# --------------------------------------------------------------------------- #
+# the rank-selection kernels: the OS-CFAR 2D noise map and the k-th smallest
+# --------------------------------------------------------------------------- #
+ZERO_GUARD = dict(num_train=(3, 2), num_guard=(0, 0), rho=0.5, alpha=2.0)
+ROW_GUARD = dict(num_train=(2, 4), num_guard=(1, 0), rho=0.9, alpha=2.0)
+NO_ROW_TRAIN = dict(num_train=(0, 3), num_guard=(2, 1), rho=0.3, alpha=2.0)
+
+
+@pytest.mark.parametrize("params", [FLAGSHIP, SECOND, ZERO_GUARD, ROW_GUARD, NO_ROW_TRAIN],
+                         ids=["flagship", "second", "zero_guard", "row_guard",
+                              "no_row_train"])
+@pytest.mark.parametrize("shape", [(1, 63, 70), (7, 63, 70), (64, 63, 70), (3, 17, 15),
+                                   (5, 64, 128), (2, 256, 192)])
+def test_noise_kernel_equals_plain_version(cuda, params, shape):
+    """Equal on every cell (a k-th smallest is exact), ties forced; os_2d pads it."""
+    x = _quantized_maps(shape, seed=shape[0], device=cuda)
+    _, _, mask, k = cfar._geometry(params["num_train"], params["num_guard"], params["rho"])
+    if shape[1] < mask.shape[0] or shape[2] < mask.shape[1]:
+        pytest.skip("map smaller than this window")
+    geometry = dict(num_train=params["num_train"], num_guard=params["num_guard"])
+    before = kernel.os_cfar_2d_noise.launches
+    thr, noise = cfar.os_2d(x, **params)
+    torch.cuda.synchronize()
+    assert kernel.os_cfar_2d_noise.launches == before + 1
+    want = cfar.os_2d_noise_reference(x, k=k, **geometry)
+    er, ed = (mask.shape[0] - 1) // 2, (mask.shape[1] - 1) // 2
+    core = noise[:, er : shape[1] - er, ed : shape[2] - ed]
+    assert torch.equal(core, want)
+    assert torch.equal(thr[:, er : shape[1] - er, ed : shape[2] - ed],
+                       params["alpha"] * want)
+    edges = torch.ones(shape[1:], dtype=torch.bool, device=cuda)
+    edges[er : shape[1] - er, ed : shape[2] - ed] = False
+    assert bool(torch.isinf(thr[:, edges]).all()) and bool((noise[:, edges] == 0).all())
+    # the identity the two OS-CFAR kernels check each other by
+    assert torch.equal(x > thr, cfar.os_2d_detect(x, **params))
+
+
+def test_noise_kernel_sorts_infinities_last_and_signs_right(cuda):
+    x = _quantized_maps((4, 30, 30), seed=3, device=cuda) - 1.0  # negatives and zeros
+    x[0, ::3, ::2] = float("inf")
+    x[1, ::2, ::3] = float("-inf")
+    x[2, ::2] = -0.0
+    for rho in (0.05, 0.5, 0.98):
+        params = dict(num_train=(3, 3), num_guard=(1, 1), rho=rho, alpha=2.0)
+        _, _, _, k = cfar._geometry(params["num_train"], params["num_guard"], rho)
+        _, noise = cfar.os_2d(x, **params)
+        want = cfar.os_2d_noise_reference(x, num_train=(3, 3), num_guard=(1, 1), k=k)
+        assert torch.equal(noise[:, 4:-4, 4:-4], want)
+
+
+def test_os_2d_answers_a_map_smaller_than_a_window_without_a_launch(cuda):
+    x = _quantized_maps((2, 10, 12), seed=5, device=cuda)
+    before = kernel.os_cfar_2d_noise.launches
+    thr, noise = cfar.os_2d(x, **FLAGSHIP)
+    assert kernel.os_cfar_2d_noise.launches == before
+    assert bool(torch.isinf(thr).all()) and bool((noise == 0).all())
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "strided", "rank", "k_low", "k_high",
+                                  "small"])
+def test_noise_kernel_rejects_what_it_does_not_take(cuda, case):
+    x = _quantized_maps((2, 40, 40), seed=0, device=cuda)
+    kw = dict(num_train=(5, 5), num_guard=(3, 2), k=154)
+    if case == "cpu":
+        x = x.cpu()
+    elif case == "dtype":
+        x = x.double()
+    elif case == "strided":
+        x = x[:, :, ::2]
+    elif case == "rank":
+        x = x[0]
+    elif case == "k_low":
+        kw["k"] = 0
+    elif case == "k_high":
+        kw["k"] = 221
+    elif case == "small":
+        x = x[:, :16, :14].contiguous()
+    with pytest.raises((ValueError, TypeError)):
+        kernel.os_cfar_2d_noise(x, **kw)
+
+
+@pytest.mark.parametrize("shape,ks", [((500, 152), (1, 77, 106, 152)), ((1, 1), (1,)),
+                                      ((3, 10), (1, 5, 10)), ((4097, 24), (12,)),
+                                      ((100, 32), (7, 32)), ((100, 33), (7, 33)),
+                                      ((300, 220), (154,)), ((3, 257), (1, 200, 257)),
+                                      ((100003, 10), (6,))])
+def test_kth_smallest_kernel_equals_plain_version(cuda, shape, ks):
+    x = _quantized_maps(shape, seed=shape[1], device=cuda) - 0.5
+    if shape[0] > 2:
+        x[0, ::2] = float("inf")
+        x[1] = x[1, 0]  # a row of one value
+    for k in ks:
+        before = rank_select.kth_smallest.launches
+        got = cfar._rank_reduce(x, k)
+        torch.cuda.synchronize()
+        assert rank_select.kth_smallest.launches == before + 1
+        assert torch.equal(got, cfar.kth_smallest_reference(x, k))
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "strided", "rank", "k_low", "k_high"])
+def test_kth_smallest_kernel_rejects_what_it_does_not_take(cuda, case):
+    x = _quantized_maps((8, 24), seed=0, device=cuda)
+    k = 12
+    if case == "cpu":
+        x = x.cpu()
+    elif case == "dtype":
+        x = x.double()
+    elif case == "strided":
+        x = x[:, ::2]
+    elif case == "rank":
+        x = x[0]
+    elif case == "k_low":
+        k = 0
+    elif case == "k_high":
+        k = 25
+    with pytest.raises((ValueError, TypeError)):
+        rank_select.kth_smallest(x, k)
+
+
+def test_rank_kernels_take_an_empty_batch(cuda):
+    assert rank_select.kth_smallest(torch.empty((0, 24), device=cuda), 3).shape == (0,)
+    out = kernel.os_cfar_2d_noise(torch.empty((0, 63, 70), device=cuda),
+                                  num_train=(5, 5), num_guard=(3, 2), k=154)
+    assert out.shape == (0, 47, 56)
+
+
+def test_os_1d_on_cuda_equals_cpu(cuda):
+    x = _quantized_maps((5, 63, 70), seed=9, device=cuda)
+    kw = dict(num_train=12, num_guard=4, rho=0.5, alpha=15.0)
+    before = rank_select.kth_smallest.launches
+    thr, noise = cfar.os_1d(x, **kw)
+    assert rank_select.kth_smallest.launches == before + 1
+    thr_cpu, noise_cpu = cfar.os_1d(x.cpu(), **kw)
+    assert torch.equal(thr.cpu(), thr_cpu) and torch.equal(noise.cpu(), noise_cpu)
+
+
+def test_detector_api_on_cuda_matches_cpu_and_launches_the_kernels(cuda):
+    cfg = load_cfg(CFG_PATH, array_geometry="ods", array_direction="down")
+    raw_re, raw_im, _ = make_inputs(cfg, 2, seed=7)
+    virt = reformat(torch.complex(torch.from_numpy(raw_re), torch.from_numpy(raw_im)),
+                    num_rx=4, cfgs_per_loop=3)
+    pcg_kw = dict(az_antenna_idxs=[0, 3, 4, 7], el_antenna_idxs=[9, 8, 5, 4],
+                  detector_type="range_doppler_detector_2d",
+                  detector_params=dict(cfar_type="os_cfar_2d", cfar_params=FLAGSHIP))
+    for aoa in ("fft", "capon"):
+        gpu = PointCloudGenerator(cfg, aoa_method=aoa, device=cuda, **pcg_kw)
+        cpu = PointCloudGenerator(cfg, aoa_method=aoa, device="cpu", **pcg_kw)
+        kernel.os_cfar_2d_noise.launches = 0
+        for frame in virt:
+            got, want = gpu.process(frame.to(cuda)), cpu.process(frame)
+            assert got.shape == want.shape and len(want) > 0
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        assert kernel.os_cfar_2d_noise.launches == len(virt)
+    for cls in (RangeDetector, RangeDopplerDetectorSequential):
+        rank_select.kth_smallest.launches = 0
+        gpu, cpu = cls(cfg, device=cuda), cls(cfg, device="cpu")
+        for frame in virt:
+            assert np.array_equal(gpu.process(frame.to(cuda)), cpu.process(frame))
+        assert rank_select.kth_smallest.launches >= len(virt)
