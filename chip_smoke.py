@@ -18,8 +18,10 @@ failure (exit code != 0):
    map of a shipped config, 256x192);
 4. response kernel: the Doppler-azimuth responses equal their plain version,
    bit for bit, at B in {1, 7, 1024} of [12, 19*70] with 60 angle bins, at
-   the zoom width nv = 140, at an odd small shape, in the paired (group)
-   layout, and the paired layout equals the unpaired one;
+   the zoom width nv = 140, at an odd small shape, at angle counts that the
+   block of 4 angle bins a thread does not divide (7, 61, 62), with 3 and 5
+   antennas a set, in the paired (group) layout, and the paired layout equals
+   the unpaired one;
 5. point-cloud slice: ``make_inputs(cfg, 32, seed=7)`` (seeded simulated
    frames, numpy only) through the pipeline on the GPU and on the CPU (the
    plain path that the tests hold to the JAX package): ``count`` and
@@ -43,7 +45,10 @@ failure (exit code != 0):
    each within rtol ``MAP_RTOL`` and atol 1e-4 times the map's maximum;
 10. rank-selection kernels: the OS-CFAR 2D noise map against its plain
    version (slice-stacked training cells, sorted), equal on every cell, on
-   the maps of phase 3 and a geometry with a zero guard; ``os_2d``'s
+   the maps of phase 3 (``+inf`` cells added), a geometry with a zero guard,
+   1024 maps of 256x192, a 3-column window, a window whose region needs the
+   largest sort, maps of several tiles whose core no tile divides in either
+   axis, and a map of whole tiles plus one cell; ``os_2d``'s
    thresholds equal ``alpha`` times that noise padded with ``+inf``, and
    ``x > os_2d(x)`` equals the detection kernel's mask bit for bit (the two
    kernels check each other); the k-th smallest along rows against a sort,
@@ -67,7 +72,17 @@ failure (exit code != 0):
    turns (plain, kernel, kernel, plain), ``torch.kthvalue`` beside the k-th
    smallest kernel as its library yardstick, and each kernel's bound: the
    larger of its bytes (inputs read once, outputs written once) over
-   ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``.
+   ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``; the noise
+   kernel also on continuous maps (within 5% of the quantized ones: it
+   searches ranks, not floats), for one frame, at two other windows, and
+   with the operations its own design spends (``kernel_own_ops``).
+
+``python3 chip_smoke.py --kernel-times`` runs only the response and noise
+kernels' part of phase 13 (each kernel is held against its plain version
+before it is timed).  To compare two trees on one card, run it from the root
+of each in turns inside one job (parent, change, change, parent); a tree from
+before the option has the same ``time_responses`` and ``time_noise`` to call
+from ``python3 -c``.
 
 Each path is run on the GPU with the launch counts set to 0 just before and
 read just after; a path that never launched its kernels fails.  Prints JSON
@@ -111,6 +126,11 @@ RANK_REPLACES = {
     "kth_smallest": "mmwave_radar_processing_tpu/ops/pallas/rank_select.py:88",
 }
 ZERO_GUARD_CFAR_PARAMS = dict(num_train=(3, 2), num_guard=(0, 0), rho=0.5, alpha=2.0)
+NARROW_CFAR_PARAMS = dict(num_train=(2, 1), num_guard=(1, 0), rho=0.6, alpha=2.0)
+#: the flagship's 17 x 15 window with other columns: 206 training cells against 220
+OTHER_COLUMNS_CFAR_PARAMS = dict(num_train=(5, 4), num_guard=(3, 3), rho=0.7, alpha=4.0)
+#: a 101 x 85 window: its region takes the noise kernel's largest sort (16,384 keys)
+HUGE_CFAR_PARAMS = dict(num_train=(48, 40), num_guard=(2, 2), rho=0.7, alpha=2.0)
 #: published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 #: and float32 operations outside the tensor cores (an FMA counts as two)
 HBM_BYTES_PER_S = 3.35e12
@@ -326,22 +346,33 @@ def check_responses(vel_pipeline, device):
 
     fct, fst = vel_pipeline.fct, vel_pipeline.fst  # [60, 16]: the flagship's factors
     gen = torch.Generator().manual_seed(1)
-    odd_f = [torch.randn(9, 16, generator=gen).to(device) for _ in "cs"]
+
+    def factors(n_angles, n_cols):
+        return [torch.randn(n_angles, n_cols, generator=gen).to(device) for _ in "cs"]
+
     w = vel_pipeline.win_rows
-    cases = [("flagship", (1, 12, w, 70), fct, fst),
-             ("flagship", (7, 12, w, 70), fct, fst),
-             ("flagship", (1024, 12, w, 70), fct, fst),
-             ("zoom", (32, 12, w, 140), fct, fst),
-             ("odd", (3, 12, 5, 16), *odd_f)]
+    three, five = ((0, 3, 4), (1, 2, 5), (10, 11, 6)), ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9))
+    cases = [("flagship", (1, 12, w, 70), fct, fst, SETS),
+             ("flagship", (7, 12, w, 70), fct, fst, SETS),
+             ("flagship", (1024, 12, w, 70), fct, fst, SETS),
+             ("zoom", (32, 12, w, 140), fct, fst, SETS),
+             ("odd", (3, 12, 5, 16), *factors(9, 16), SETS),
+             # angle counts that leave 3, 1 and 2 bins in the last block of 4 a thread takes
+             ("odd", (33, 12, w, 70), *factors(7, 16), SETS),
+             ("odd", (2, 12, w, 140), *factors(61, 16), SETS),
+             ("odd", (2, 12, w, 70), *factors(62, 16), SETS),
+             # antennas a set other than 4: the factors stay out of the registers
+             ("odd", (33, 12, w, 70), *factors(13, 9), three),
+             ("odd", (5, 12, w, 70), *factors(60, 10), five)]
     errs = {"flagship": 0.0, "zoom": 0.0, "odd": 0.0, "group": 0.0}
-    for i, (kind, (b, c, rows, nv), fc, fs) in enumerate(cases):
+    for i, (kind, (b, c, rows, nv), fc, fs, sets) in enumerate(cases):
         args = response_inputs(b, c, rows, nv, fc, fs, seed=20 + i, device=device)
         before = doppler_az_responses.launches
-        got = doppler_az.set_responses(*args, set_idx=SETS, nv=nv)
+        got = doppler_az.set_responses(*args, set_idx=sets, nv=nv)
         torch.cuda.synchronize()
         if doppler_az_responses.launches != before + 1:
             raise RuntimeError(f"response kernel launch not counted at {(b, c, rows, nv)}")
-        want = doppler_az.set_responses_reference(*args, set_idx=SETS, nv=nv)
+        want = doppler_az.set_responses_reference(*args, set_idx=sets, nv=nv)
         err = float((got - want).abs().max())
         errs[kind] = max(errs[kind], err)
         if not torch.equal(got, want):
@@ -351,7 +382,7 @@ def check_responses(vel_pipeline, device):
         if not bool((want > 0).any()):
             raise RuntimeError(f"all-zero responses at {(b, c, rows * nv)}: vacuous")
         emit(phase="response_kernel", shape=[b, c, rows * nv], nv=nv,
-             n_angles=fc.shape[0], equal=True)
+             n_angles=fc.shape[0], antennas_a_set=len(sets[0]), equal=True)
 
         if kind == "flagship" and b == 7:  # the paired layout of the same spectra
             paired = paired_inputs(args, rows, nv)
@@ -713,6 +744,8 @@ def time_responses(vel_pipeline, device, batch=1024):
         plain = lambda: doppler_az.set_responses_reference(*args, **kw)  # noqa: E731
         kernel_ms, plain_ms, turns = take_turns(kernel, plain, 10, 10)
         out = kernel()
+        if not torch.equal(out, plain()):
+            raise RuntimeError(f"response kernel != plain version at the timed {kind} shape")
         n_rx = len(kw["set_idx"][0])
         # per output and range row: n_rx complex products by a real pair (6
         # flops) summed (2), a magnitude (4), a weight and a sum (2)
@@ -771,17 +804,26 @@ def take_turns(kernel, plain, kernel_iters, plain_iters, library=None):
 def check_noise_kernel(device):
     """OS-CFAR 2D noise kernel vs its plain version, equal on every cell; returns max |error|."""
     from mmwave_radar_processing_tpu_torch.ops import cfar
-    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import os_cfar_2d_noise
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import (
+        noise_launch_geometry, os_cfar_2d_noise,
+    )
 
     cases = [(p, (b, 63, 70)) for p in (CFAR_PARAMS, SECOND_CFAR_PARAMS)
              for b in (1, 7, 1024)]
     cases += [(ZERO_GUARD_CFAR_PARAMS, (7, 63, 70)),
               (CFAR_PARAMS, (3, 17, 15)),   # exactly one window
               (CFAR_PARAMS, (2, 10, 12)),   # smaller than a window: no launch
-              (CFAR_PARAMS, (2, 256, 192))]  # 196 KB: above the 48 KB default
+              (CFAR_PARAMS, (2, 256, 192)),  # the largest map of a shipped config
+              (CFAR_PARAMS, (1024, 256, 192)),
+              (NARROW_CFAR_PARAMS, (7, 63, 70)),  # a 3-column window: the shortest runs
+              (HUGE_CFAR_PARAMS, (2, 104, 90)),
+              (CFAR_PARAMS, ragged_noise_shape(CFAR_PARAMS, 1)),
+              (SECOND_CFAR_PARAMS, ragged_noise_shape(SECOND_CFAR_PARAMS, 64)),
+              (CFAR_PARAMS, tile_plus_a_cell_noise_shape(CFAR_PARAMS, 1))]
     max_err = 0.0
     for i, (params, shape) in enumerate(cases):
         x = quantized_maps(*shape, seed=60 + i, device=device)
+        x[:, ::9, ::7] = float("inf")
         n_train, lost_r, lost_d = window_cells(params)
         k = cfar.os_rank(params["rho"], n_train)
         before = os_cfar_2d_noise.launches
@@ -802,7 +844,8 @@ def check_noise_kernel(device):
         core = (slice(None), slice(er, shape[1] - er), slice(ed, shape[2] - ed))
         want = cfar.os_2d_noise_reference(
             x, num_train=params["num_train"], num_guard=params["num_guard"], k=k)
-        err = float((noise[core] - want).abs().max())
+        finite = torch.isfinite(want)
+        err = float((noise[core][finite] - want[finite]).abs().max())
         max_err = max(max_err, err)
         if not torch.equal(noise[core], want):
             raise RuntimeError(
@@ -819,9 +862,42 @@ def check_noise_kernel(device):
             raise RuntimeError(
                 f"x > os_2d(x) differs from the detection kernel's mask at {shape} "
                 f"{params}: {int(((x > thr) != mask).sum())} cells")
+        geo = noise_launch_geometry(shape[1], shape[2], tuple(params["num_train"]),
+                                    tuple(params["num_guard"]), shape[0])
         emit(phase="noise_kernel", shape=list(shape), cfar=params, k=k, equal=True,
-             detections=int(mask.sum()), equals_detection_kernel=True)
+             detections=int(mask.sum()), equals_detection_kernel=True,
+             geometry=geo._asdict())
     return max_err
+
+
+def noise_shapes(params, batch):
+    """``(shape, core, geometry)`` of small maps in the order searched for a tiling property."""
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import noise_launch_geometry
+
+    _, lost_r, lost_d = window_cells(params)
+    for rows in range(lost_r + 2, lost_r + 70):
+        for cols in range(lost_d + 2, lost_d + 70):
+            geo = noise_launch_geometry(rows, cols, tuple(params["num_train"]),
+                                        tuple(params["num_guard"]), batch)
+            yield (batch, rows, cols), (rows - lost_r, cols - lost_d), geo
+
+
+def ragged_noise_shape(params, batch):
+    """A map of several tiles whose core no tile divides, in either axis."""
+    for shape, (r_out, d_out), geo in noise_shapes(params, batch):
+        if (geo.tiles_r > 1 and geo.tiles_d > 1 and r_out % geo.tile_r
+                and d_out % geo.tile_d and d_out % 4):
+            return shape
+    raise RuntimeError("no ragged tiling found")
+
+
+def tile_plus_a_cell_noise_shape(params, batch):
+    """A map whose core is whole tiles and one more cell, in each axis."""
+    for shape, (r_out, d_out), geo in noise_shapes(params, batch):
+        if (geo.tiles_r > 1 and geo.tiles_d > 1 and r_out % geo.tile_r == 1
+                and d_out % geo.tile_d == 1):
+            return shape
+    raise RuntimeError("no map of whole tiles plus one cell found")
 
 
 def check_kth_kernel(device):
@@ -971,29 +1047,76 @@ def check_altitude_track(cfg, device, frames):
         raise RuntimeError("the altitude track never moved: a vacuous check")
 
 
+def noise_kernel_own_ops(geo, n_train, cells, batch):
+    """Operations the noise kernel's own design spends on ``batch`` maps.
+
+    A tile sorts its region with a bitonic network of ``sort_size`` (a
+    compare and an exchange per pair and step), looks every value's rank up
+    by bisection, then counts ``passes`` times over every cell's training
+    cells (a compare and an add each).
+    """
+    log2 = geo.sort_size.bit_length() - 1
+    tiles = batch * geo.tiles_r * geo.tiles_d
+    sort = 2 * (geo.sort_size // 2) * log2 * (log2 + 1) // 2
+    ranks = geo.region_r * geo.region_d * log2
+    return tiles * (sort + ranks) + geo.passes * 2 * n_train * cells
+
+
 def time_noise(device, batch=1024):
     """Noise kernel and plain version at [batch, 63, 70]; also ``os_2d`` plus the compare.
 
-    Returns the kernel's ``timing``; no library call computes the function.
+    Timed on quantized exponential maps (ties) and on continuous ones: a
+    search over ranks takes the same passes on both.  Returns the kernel's
+    ``timing`` on the quantized maps; no library call computes the function.
     """
     from mmwave_radar_processing_tpu_torch.ops import cfar
-    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import os_cfar_2d_noise
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import (
+        noise_launch_geometry, os_cfar_2d_noise,
+    )
 
     x = quantized_maps(batch, 63, 70, seed=12, device=device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    continuous = torch.empty_like(x).exponential_(generator=gen)
     n_train, lost_r, lost_d = window_cells(CFAR_PARAMS)
     geometry = dict(num_train=CFAR_PARAMS["num_train"], num_guard=CFAR_PARAMS["num_guard"],
                     k=cfar.os_rank(CFAR_PARAMS["rho"], n_train))
+    if not torch.equal(os_cfar_2d_noise(continuous, **geometry),
+                       cfar.os_2d_noise_reference(continuous, **geometry)):
+        raise RuntimeError("noise kernel != plain version on continuous maps")
     kernel_ms, plain_ms, turns = take_turns(
         lambda: os_cfar_2d_noise(x, **geometry),
-        lambda: cfar.os_2d_noise_reference(x, **geometry), 10, 2)
+        lambda: cfar.os_2d_noise_reference(x, **geometry), 20, 2)
+    continuous_ms = cuda_ms(lambda: os_cfar_2d_noise(continuous, **geometry), 20)
+    again_ms = cuda_ms(lambda: os_cfar_2d_noise(x, **geometry), 20)
+    # one frame, as the detector API launches it: launch to launch, host included
+    one_frame_ms = cuda_ms(lambda: os_cfar_2d_noise(x[:1], **geometry), 200)
     cells = batch * (63 - lost_r) * (70 - lost_d)
-    # the bound counts the compares a selection needs; the kernel's own bitwise
-    # search spends 32 passes of a compare and an add per training cell
+    geo = noise_launch_geometry(63, 70, geometry["num_train"], geometry["num_guard"], batch)
+    # the bound counts the compares a selection needs, not what the design spends
     res = timing(kernel_ms, plain_ms, 4 * (x.numel() + cells),
                  selection_compares(n_train, geometry["k"]) * cells)
     detect_ms = cuda_ms(lambda: x > cfar.os_2d(x, **CFAR_PARAMS)[0], 10)
+    # other windows: the kernel's time should follow the training cells
+    others = {}
+    for name, params in (("other_columns", OTHER_COLUMNS_CFAR_PARAMS),
+                         ("second", SECOND_CFAR_PARAMS)):
+        other = dict(num_train=params["num_train"], num_guard=params["num_guard"],
+                     k=cfar.os_rank(params["rho"], window_cells(params)[0]))
+        if not torch.equal(os_cfar_2d_noise(x, **other),
+                           cfar.os_2d_noise_reference(x, **other)):
+            raise RuntimeError(f"noise kernel != plain version at the {name} window")
+        others[name] = {"n_train": window_cells(params)[0], "k": other["k"],
+                         "ms": cuda_ms(lambda: os_cfar_2d_noise(x, **other), 20)}
     emit(phase="noise_timing", shape=[batch, 63, 70], turns=turns,
-         os_2d_and_compare_ms=detect_ms, kernel_own_ops=32 * 2 * n_train * cells, **res)
+         continuous_ms=continuous_ms, quantized_again_ms=again_ms,
+         continuous_over_quantized=continuous_ms / again_ms,
+         one_frame_launch_ms=one_frame_ms, os_2d_and_compare_ms=detect_ms,
+         n_train=n_train, other_windows=others,
+         kernel_own_ops=noise_kernel_own_ops(geo, n_train, cells, batch),
+         geometry=geo._asdict(), **res)
+    if not abs(continuous_ms / again_ms - 1.0) <= 0.05:
+        raise RuntimeError(f"the rank search took {continuous_ms} ms on continuous maps "
+                           f"against {again_ms} ms on quantized ones")
     return res
 
 
@@ -1088,10 +1211,26 @@ def build_kernels():
     emit(phase="build", wall_seconds=time.perf_counter() - t0)
 
 
+def kernel_times():
+    """The response and noise kernels alone, each beside its plain version, as phase 13 times them."""
+    from mmwave_radar_processing_tpu_torch import build_velocity_pipeline, load_cfg
+
+    device = torch.device("cuda", 0)
+    emit(phase="environment", card=gpu_name_and_power_limit(), torch=torch.__version__,
+         cuda=torch.version.cuda)
+    cfg = load_cfg(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
+    time_responses(build_velocity_pipeline(cfg, device=device), device)
+    time_noise(device)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device "
                          "(torch.cuda.is_available() is False)")
+    if sys.argv[1:] == ["--kernel-times"]:
+        return kernel_times()
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times]")
     from mmwave_radar_processing_tpu_torch import (
         build_capon_pipeline, build_full_pipeline, build_point_cloud_pipeline,
         build_velocity_pipeline, load_cfg, make_inputs,

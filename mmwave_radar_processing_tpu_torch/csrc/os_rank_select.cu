@@ -1,5 +1,5 @@
 // Rank selection for OS-CFAR on Hopper (sm_90a): the k-th smallest of a set of
-// float32 values, exact.  Two entry points share one device routine.
+// float32 values, exact.  Two entry points, one kind of search.
 //
 //   os_cfar_2d_noise  replaces the TPU kernel
 //     mmwave_radar_processing_tpu/ops/pallas/os_cfar.py :: os_cfar_2d_noise_fused
@@ -10,34 +10,73 @@
 //     mmwave_radar_processing_tpu/ops/pallas/rank_select.py :: kth_smallest
 //     the k-th smallest (1-based) along the last axis of [M, W].
 //
-// Selection: a bitwise search on the order-preserving integer image of the
-// float.  key(x) flips the sign bit of a non-negative float and all bits of a
-// negative one, so unsigned key order is float order.  The k-th smallest key
-// is the largest v with #{key < v} <= k-1; v is built from the top bit down,
-// one counting pass over the set per bit: 32 passes of n compare-adds.  The
-// result is one of the inputs, bit for bit, so it equals
-// sort(values)[k-1] under == (-0.0 and +0.0 have different keys but compare
-// equal).  +inf sorts last.  NaNs are not engineered: one with the sign bit
-// clear sorts after +inf, as torch.sort places it; one with the sign bit set
-// sorts before -inf, where torch.sort would place it last.
+// Selection: a bitwise search.  key(x), the order-preserving integer image of
+// the float, flips the sign bit of a non-negative float and all bits of a
+// negative one, so unsigned key order is float order.  The k-th smallest of a
+// set of integers is the largest v with #{element < v} <= k-1; v is built from
+// the top bit down, one counting pass over the set per bit.  The result is one
+// of the inputs, bit for bit, so it equals sort(values)[k-1] under == (-0.0
+// and +0.0 have different keys but compare equal).  +inf sorts last.  NaNs are
+// not engineered: one with the sign bit clear sorts after +inf, as torch.sort
+// places it; one with the sign bit set sorts before -inf, where torch.sort
+// would place it last.
 //
 // Neither design carries over the TPU kernels' layout (windows padded to 256
-// slots with +inf, a full bitonic network over a [256, R', D'] scratch, rows
-// padded to 128 lanes and tiles of 256): Hopper threads branch and index
-// shared memory freely, so nothing is padded and nothing is sorted.
+// slots with +inf, a full bitonic network over a [256, R', D'] scratch of every
+// window, rows padded to 128 lanes and tiles of 256): nothing is padded in
+// device memory and no window is ever sorted.
 //
-// os_cfar_2d_noise: a block copies its frame's map into shared memory as keys
-// (63 x 70 x 4 B = 17.6 KB on the flagship config; up to 227 KB), then each
-// thread selects for its own core cells, reading the training cells from
-// shared memory; neighbouring threads take neighbouring columns (consecutive
-// words, no bank conflicts).  The ~220x window expansion never reaches device
-// memory.  A frame is split over gridDim.y blocks, chosen by the host so that
-// a small batch still fills the card.  Cost: a flagship frame moves 17.6 KB
-// in and 10.5 KB out, and this search spends 47*56 cells x 32 passes x 220
-// compare-adds on it (1.9e7 a frame), each with a shared-memory read: the
-// integer ALU and the shared-memory reads limit the kernel, not device memory.
-// That count is the search's own, not the function's bound: a selection needs
-// about n + min(k, n-k) compares a cell (286 at n = 220, k = 154) against this search's 7,040 compare-adds.
+// os_cfar_2d_noise.  What bounds it on this card: a flagship frame ([63, 70],
+// a 17 x 15 window less a 7 x 5 guard box, 220 training cells, k = 154) moves
+// 17.6 KB in and 10.5 KB out, and a selection needs about n + min(k, n-k) = 286
+// compares a cell: 11.5 us for 1024 frames.  No search comes near that; what
+// the kernel spends is counting passes over the window, so the design cuts the
+// passes, the loads and the instructions of a pass:
+//   1. Ranks, not floats.  A block takes a tile of core cells (a whole
+//      flagship frame; tiles of at most 8,192 region values on larger maps and,
+//      at a small batch, tiles down to 64 cells so that the card fills), sorts
+//      the tile's region (its cells and their windows) once and replaces every
+//      value by its rank, the number of keys below it.  The k-th smallest rank
+//      of a window belongs to the k-th smallest value, which is read back from
+//      the sorted keys.  A search over ranks takes ceil(log2 region) passes,
+//      whatever the data: 13 for a flagship frame where the search over float
+//      keys took 32.
+//   2. The sort is a bitonic network with sort_size / 256 keys a thread held in
+//      registers: a step stays inside the thread, crosses lanes by shuffle or,
+//      for the 6 widest of 91 steps at 8,192 keys, crosses warps through shared
+//      memory.  Ranks come from a bisection of the sorted keys (ties share the
+//      lower bound, which the search handles).
+//   3. Ranks are kept as 16-bit patterns of a half (rank + 0x0400: positive
+//      normal halves order as their bits), two to a word, in two copies, the
+//      second shifted by a column, so that a run starting at any column starts
+//      on a word.  __hlt2_mask compares two ranks in one instruction and the
+//      masks are summed as integers, two to an add (see MaskSum): 1.5
+//      instructions for two training cells.
+//   4. A thread selects for a strip of 4 neighbouring cells: cells q and q + 2
+//      read the same copy one word apart, so each word is loaded once for both;
+//      threads of a warp sit on neighbouring rows, whose words fall on
+//      different banks (an odd row length).  A window has runs of two lengths
+//      (its whole width above and below the guard box, its training columns
+//      beside it); each pass finds the instance of its loops that has the
+//      length as a compile-time constant (up to 31 columns; a bisection, 5
+//      uniform branches), so the runs unroll into straight-line code.
+//   5. At a small batch the window rows of a strip are split over 2 to 32 lanes
+//      whose counts are summed by shuffle, so that one frame still gives every
+//      SM work: 42 blocks of 8 x 8 cells, 16 lanes a strip.
+// Times (NVIDIA H100 80GB HBM3, 700.00 W; [1024, 63, 70], k = 154, in turns
+// with the earlier kernel in one job): the 32-pass search over float keys, one
+// block a frame, 5.95 ms; ranks with a bitonic network in shared memory and
+// half2 compare-adds 1.52 ms; summed masks 1.41; the sort in registers, the
+// runs still run-time loops, 1.16 at a 17 x 15 window of 206 training cells;
+// run lengths as compile-time constants 0.81 there, 0.88 at the flagship's 220
+// cells and 0.73 at a 13 x 15 window of 180.  An instance with the flagship's
+// columns (5 training, 2 guard) as template parameters took 0.85 there: 3% for
+// one window, not kept.  The rows above and below the guard box shared out
+// over a strip's lanes as one band: one frame 24 -> 22 us of device time
+// (0.178 ms before the redesign), 0.89 / 0.84 / 0.74 at 1024 frames, the same
+// on quantized and on continuous maps.  What is left: the counting passes take
+// about two thirds, near the SM's instruction rate; the sort and the ranks
+// take the rest.
 //
 // kth_smallest: a group of 1 to 32 lanes a row (a power of two, the smallest
 // that gives each lane at most 8 columns; chosen from W by the entry point),
@@ -50,11 +89,13 @@
 // 4W bytes apart across a warp), took 3.4 times as long at [2451456, 24] and
 // 1.75 times at [168448, 220] (NVIDIA H100 80GB HBM3, 700 W).  Bound: [M, W]
 // moves 4*M*(W+1) bytes, and a selection needs about W + min(k, W-k) compares
-// a row: bytes.  The search's own 32*M*W compare-adds are what it spends.
+// a row: bytes.  The search's own 32*M*W compare-adds (over float keys: rows
+// are too short to pay for a sort) are what it spends.
 //
 // Built by nvcc into a shared library with plain C entry points, loaded with
 // ctypes (mmwave_radar_processing_tpu_torch/ops/kernels/_build.py).
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,41 +125,340 @@ __device__ __forceinline__ uint32_t kth_smallest_key(int k, CountBelow count_bel
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The launch geometry of the noise map, computed on the host
+// (ops/kernels/os_cfar.py :: noise_launch_geometry).
+struct NoiseLaunch {
+  int rows, cols, tr, td, gr, gd, k;
+  int tile_r, tile_d, tiles_r, tiles_d;  // core cells a tile (tile_d: 4 divides it), tiles a frame
+  int words_per_row;                     // of a rank copy, odd: rows fall on different banks
+  int sort_size, passes, row_split;
+};
+
+constexpr unsigned short kRankBase = 0x0400;  // rank 0 as a half: the smallest normal
+constexpr unsigned short kRankPad = 0x7BFF;   // the largest finite half
+
+// A lane's count of ranks below a threshold.  __hlt2_mask gives 0xFFFF for each
+// half of a word that is below; the masks are summed as plain 32-bit integers,
+// two to an add: with L low halves and H high halves below, the sum is
+// 65535*L - 65536*H (mod 2^32), from which both come back as long as each
+// stays under 65536.
+struct MaskSum {
+  uint32_t sum = 0;
+  __device__ __forceinline__ void add(uint32_t m0, uint32_t m1) { sum += m0 + m1; }
+  __device__ __forceinline__ void add(uint32_t m) { sum += m; }
+  __device__ __forceinline__ int count() const {
+    const uint32_t low = (0u - sum) & 0xFFFFu;
+    const uint32_t high = ((low << 16) - low - sum) >> 16;
+    return static_cast<int>(low + high);
+  }
+};
+
+// Count, for the strip's cells q and q + 2, the ranks below their thresholds
+// in `len` columns starting at the word `wp` (cell q + 2 starts one word on).
+// Full words first, then the low lane of one more word if `len` is odd.
+__device__ __forceinline__ void count_pair(const __half2* __restrict__ wp, int len,
+                                           __half2 t0, __half2 t0_low, __half2 t2,
+                                           __half2 t2_low, MaskSum& a0, MaskSum& a2) {
+  const int full = len >> 1;
+  const bool odd = len & 1;
+  if (full > 0) {
+    // cell q takes words [0, full), cell q + 2 words [1, full]
+    __half2 w = wp[0];
+    int i = 1;
+#pragma unroll
+    for (; i + 1 < full; i += 2) {
+      const __half2 w1 = wp[i], w2 = wp[i + 1];
+      a0.add(__hlt2_mask(w, t0), __hlt2_mask(w1, t0));
+      a2.add(__hlt2_mask(w1, t2), __hlt2_mask(w2, t2));
+      w = w2;
+    }
+    if (i < full) {
+      const __half2 w1 = wp[i];
+      a0.add(__hlt2_mask(w, t0), __hlt2_mask(w1, t0));
+      a2.add(__hlt2_mask(w1, t2));
+    } else {
+      a0.add(__hlt2_mask(w, t0));
+    }
+    w = wp[full];
+    if (odd) {
+      a0.add(__hlt2_mask(w, t0_low));
+      a2.add(__hlt2_mask(w, t2), __hlt2_mask(wp[full + 1], t2_low));
+    } else {
+      a2.add(__hlt2_mask(w, t2));
+    }
+  } else if (odd) {
+    a0.add(__hlt2_mask(wp[0], t0_low));
+    a2.add(__hlt2_mask(wp[1], t2_low));
+  }
+}
+
+template <int kValue>
+struct Constant {
+  __device__ constexpr operator int() const { return kValue; }
+};
+
+// Calls f(c) with c a compile-time constant equal to `len` (a Constant, which
+// converts to int), kLo <= len <= kHi, found by bisection: the body that f
+// inlines then has its run length as a constant, and count_pair's loops
+// unroll into straight-line code.
+template <int kLo, int kHi, class F>
+__device__ __forceinline__ void with_constant_length(int len, F&& f) {
+  if constexpr (kLo == kHi) {
+    f(Constant<kLo>{});
+  } else {
+    constexpr int kMid = (kLo + kHi) / 2;
+    if (len <= kMid) {
+      with_constant_length<kLo, kMid>(len, f);
+    } else {
+      with_constant_length<kMid + 1, kHi>(len, f);
+    }
+  }
+}
+
+// Runs of up to kMaxConstantRun columns get their length as a constant; a
+// wider window's runs are loops.
+constexpr int kMaxConstantRun = 31;
+
+template <class F>
+__device__ __forceinline__ void with_run_length(int len, F&& f) {
+  if (len > kMaxConstantRun) {
+    f(len);
+  } else {
+    with_constant_length<0, kMaxConstantRun>(len, f);
+  }
+}
+
+// The sorted keys sit in shared memory with one word of padding after every
+// 32, so that a thread's run of consecutive keys falls on different banks.
+__device__ __forceinline__ int sorted_slot(int pos) { return pos + (pos >> 5); }
+
+// One compare-exchange step inside a thread, at the compile-time distance kJ.
+template <int kE, int kJ>
+__device__ __forceinline__ void exchange_in_thread(uint32_t (&key)[kE], int first, int size) {
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
+    if ((s & kJ) == 0) {
+      const uint32_t lo = min(key[s], key[s | kJ]), hi = max(key[s], key[s | kJ]);
+      const bool up = ((first + s) & size) == 0;
+      key[s] = up ? lo : hi;
+      key[s | kJ] = up ? hi : lo;
+    }
+  }
+}
+
+// The in-thread step at run-time distance j: one of kJ, kJ/2, ..., 1.
+template <int kE, int kJ>
+__device__ __forceinline__ void exchange_at(uint32_t (&key)[kE], int first, int size, int j) {
+  if constexpr (kJ > 0) {
+    if (j == kJ) {
+      exchange_in_thread<kE, kJ>(key, first, size);
+    } else {
+      exchange_at<kE, kJ / 2>(key, first, size, j);
+    }
+  }
+}
+
+// A bitonic network over kE * kThreads keys, ascending; thread t holds keys
+// [t*kE, (t+1)*kE) in registers throughout.  A step at distance j stays inside
+// the thread for j < kE, crosses lanes by shuffle for j < 32*kE, and crosses
+// warps through shared memory (slot-major, no bank conflicts) above that: 6 of
+// the 91 steps at kE = 32.  In: buf[sorted_slot(i)] = key i, synchronised.
+// Out: the same, sorted and synchronised.
+template <int kE>
+__device__ __forceinline__ void block_sort(uint32_t* buf) {
+  const int tid = threadIdx.x, first = tid * kE;
+  uint32_t key[kE];
+#pragma unroll
+  for (int s = 0; s < kE; ++s) key[s] = buf[sorted_slot(first + s)];
+  __syncthreads();
+#pragma unroll 1
+  for (int size = 2; size <= kE * kThreads; size <<= 1) {
+#pragma unroll 1
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j < kE) {
+        exchange_at<kE, kE / 2>(key, first, size, j);
+      } else {
+        const int mask = j / kE;  // the partner thread is tid ^ mask
+        const bool lower = (tid & mask) == 0;
+        const bool through_shared = mask >= 32;
+        if (through_shared) {
+#pragma unroll
+          for (int s = 0; s < kE; ++s) buf[s * kThreads + tid] = key[s];
+          __syncthreads();
+        }
+#pragma unroll
+        for (int s = 0; s < kE; ++s) {
+          uint32_t other;
+          if (through_shared) {
+            other = buf[s * kThreads + (tid ^ mask)];
+          } else {
+            other = __shfl_xor_sync(0xFFFFFFFFu, key[s], mask);
+          }
+          const bool up = ((first + s) & size) == 0;
+          key[s] = lower == up ? min(key[s], other) : max(key[s], other);
+        }
+        if (through_shared) __syncthreads();
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kE; ++s) buf[sorted_slot(first + s)] = key[s];
+  __syncthreads();
+}
+
+// kBig: the instance for a region of 16,384 values, 64 keys a thread in the
+// sort; the other keeps at most 32 and fits 4 blocks of 64 registers a thread
+// on an SM.
+template <bool kBig>
+__global__ void __launch_bounds__(kThreads, kBig ? 1 : 4)
 os_cfar_2d_noise_kernel(const float* __restrict__ x, float* __restrict__ out,
-                        int rows, int cols, int tr, int td, int gr, int gd, int k) {
-  extern __shared__ uint32_t keys[];
-  const int n = rows * cols;
-  const float* xb = x + static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) keys[i] = float_to_key(xb[i]);
+                        const NoiseLaunch p) {
+  extern __shared__ uint32_t smem[];
+  const int td = p.td, gd = p.gd;
+  const int win_r = 2 * (p.tr + p.gr) + 1, win_d = 2 * (td + gd) + 1;
+  const int r_out = p.rows - win_r + 1, d_out = p.cols - win_d + 1;
+  const int gr1 = p.tr + 2 * p.gr, gd1 = td + 2 * gd;  // guard box: [tr, gr1] x [td, gd1]
+  const int tiles = p.tiles_r * p.tiles_d;
+  const int tile = blockIdx.x % tiles;
+  const size_t frame = blockIdx.x / tiles;
+  const int r0 = (tile / p.tiles_d) * p.tile_r, c0 = (tile % p.tiles_d) * p.tile_d;
+  const int cells_r = min(p.tile_r, r_out - r0), cells_d = min(p.tile_d, d_out - c0);
+  // the region: the tile's cells and their windows; columns past the map are padding
+  const int reg_r = cells_r + win_r - 1, reg_d = p.tile_d + win_d - 1;
+  const int n_reg = reg_r * reg_d;
+  const int slots = 2 * p.words_per_row;  // 16-bit slots a row of a copy
+
+  uint32_t* sorted = smem;  // [sort_size + sort_size / 32], see sorted_slot
+  unsigned short* copy_a =
+      reinterpret_cast<unsigned short*>(smem + p.sort_size + (p.sort_size >> 5));
+  unsigned short* copy_b = copy_a + static_cast<size_t>(p.tile_r + win_r - 1) * slots;
+  const float* xb = x + frame * p.rows * p.cols + static_cast<size_t>(r0) * p.cols + c0;
+
+  auto region_key = [&](int rr, int cc) {
+    return c0 + cc < p.cols ? float_to_key(xb[rr * p.cols + cc]) : 0xFFFFFFFFu;
+  };
+
+  // 1. the region's keys, padded to the sort's size with the largest key
+  for (int i = threadIdx.x; i < p.sort_size; i += kThreads) {
+    uint32_t key = 0xFFFFFFFFu;
+    if (i < n_reg) {
+      const int rr = i / reg_d;
+      key = region_key(rr, i - rr * reg_d);
+    }
+    sorted[sorted_slot(i)] = key;
+  }
   __syncthreads();
 
-  const int win_r = 2 * (tr + gr) + 1, win_d = 2 * (td + gd) + 1;
-  const int r_out = rows - win_r + 1, d_out = cols - win_d + 1;
-  const int n_out = r_out * d_out;
-  const int gr1 = tr + 2 * gr, gd1 = td + 2 * gd;  // guard box: [tr, gr1] x [td, gd1]
-  float* ob = out + static_cast<size_t>(blockIdx.x) * n_out;
+  // 2. sort them: sort_size / kThreads keys a thread
+  switch (p.sort_size / kThreads) {
+    case 1: block_sort<1>(sorted); break;
+    case 2: block_sort<2>(sorted); break;
+    case 4: block_sort<4>(sorted); break;
+    case 8: block_sort<8>(sorted); break;
+    case 16: block_sort<16>(sorted); break;
+    case 32: block_sort<32>(sorted); break;
+    default:
+      if constexpr (kBig) block_sort<64>(sorted);
+      break;
+  }
 
-  for (int idx = blockIdx.y * blockDim.x + threadIdx.x; idx < n_out;
-       idx += blockDim.x * gridDim.y) {
-    const int r = idx / d_out;
-    const int c = idx - r * d_out;
-    // the window of core cell (r, c) starts at map cell (r, c)
-    const uint32_t* win = keys + r * cols + c;
-    const uint32_t key = kth_smallest_key(k, [&](uint32_t t) {
-      int count = 0;
-      for (int i = 0; i < win_r; ++i) {
-        const uint32_t* row = win + i * cols;
-        if (i < tr || i > gr1) {
-          for (int j = 0; j < win_d; ++j) count += row[j] < t ? 1 : 0;
-        } else {
-          for (int j = 0; j < td; ++j) count += row[j] < t ? 1 : 0;
-          for (int j = gd1 + 1; j < win_d; ++j) count += row[j] < t ? 1 : 0;
+  // 3. every value's rank (the number of keys below it), as the bits of a
+  //    half, in two copies: word j of copy A holds columns (2j, 2j+1), of
+  //    copy B columns (2j+1, 2j+2), so a run from any column starts on a word
+  for (int i = threadIdx.x; i < reg_r * slots; i += kThreads) {
+    const int rr = i / slots, cc = i - rr * slots;
+    unsigned short val = kRankPad;
+    if (cc < reg_d) {
+      const uint32_t key = region_key(rr, cc);
+      int pos = 0;
+      for (int step = p.sort_size >> 1; step > 0; step >>= 1) {
+        if (sorted[sorted_slot(pos + step - 1)] < key) pos += step;
+      }
+      val = static_cast<unsigned short>(pos + kRankBase);
+    }
+    copy_a[i] = val;
+    if (cc > 0) copy_b[i - 1] = val;
+    if (cc == slots - 1) copy_b[i] = kRankPad;
+  }
+  __syncthreads();
+
+  // 4. the k-th smallest rank of every window by a bitwise search, `passes`
+  //    counting passes; a group of `row_split` lanes shares a strip of 4 cells
+  const __half2* words_a = reinterpret_cast<const __half2*>(copy_a);
+  const __half2* words_b = reinterpret_cast<const __half2*>(copy_b);
+  const int strips = (cells_d + 3) >> 2;
+  const int groups = cells_r * strips;
+  const int split = p.row_split, lane = threadIdx.x % split;
+  const int groups_a_round = kThreads / split;
+  float* ob = out + frame * r_out * d_out;
+  const __half zero = __ushort_as_half(0);
+  const int guard_rows = 2 * p.gr + 1;
+  const int right = gd1 + 1;  // the first column after the guard box
+
+  for (int g0 = threadIdx.x / split; g0 - threadIdx.x / split < groups;
+       g0 += groups_a_round) {
+    // lanes past the last strip stay for the shuffles: they redo strip 0, store nothing
+    const bool live = g0 < groups;
+    const int g = live ? g0 : 0;
+    const int r = g % cells_r, strip = g / cells_r;
+    const int base = r * p.words_per_row + 2 * strip;
+    // where the runs left and right of the guard box start in row 0: cells 0
+    // and 2 of the strip read the copy that has the run's first column in the
+    // low half of a word, cells 1 and 3 the other copy
+    const __half2* left_even = words_a + base;
+    const __half2* left_odd = words_b + base;
+    const __half2* right_even = ((right & 1) ? words_b : words_a) + base + (right >> 1);
+    const __half2* right_odd = ((right & 1) ? words_a : words_b) + base + ((right + 1) >> 1);
+    int v[4] = {0, 0, 0, 0};
+#pragma unroll 1
+    for (int bit = p.passes - 1; bit >= 0; --bit) {
+      __half2 t[4], t_low[4];
+      MaskSum acc[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __half h = __ushort_as_half(
+            static_cast<unsigned short>((v[q] | (1 << bit)) + kRankBase));
+        t[q] = __halves2half2(h, h);
+        t_low[q] = __halves2half2(h, zero);
+      }
+      // `len` columns of window row `row` for each cell of the strip
+      auto run = [&](const __half2* even, const __half2* odd, int row, int len) {
+        const int off = row * p.words_per_row;
+        count_pair(even + off, len, t[0], t_low[0], t[2], t_low[2], acc[0], acc[2]);
+        count_pair(odd + off, len, t[1], t_low[1], t[3], t_low[3], acc[1], acc[3]);
+      };
+      // the 2*tr rows above and below the guard box: the window's whole width;
+      // the group's lanes share them out, and then the rows through the box
+      with_run_length(win_d, [&](auto len) {
+        for (int j = lane; j < 2 * p.tr; j += split) {
+          run(left_even, left_odd, j < p.tr ? j : j + guard_rows, len);
+        }
+      });
+      // rows through the guard box: the training columns on either side
+      with_run_length(td, [&](auto len) {
+        for (int i = p.tr + lane; i <= gr1; i += split) {
+          run(left_even, left_odd, i, len);
+          run(right_even, right_odd, i, len);
+        }
+      });
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        int count = acc[q].count();
+        for (int o = split >> 1; o > 0; o >>= 1)
+          count += __shfl_xor_sync(0xFFFFFFFFu, count, o);
+        if (count < p.k) v[q] |= 1 << bit;
+      }
+    }
+    if (live && lane == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = 4 * strip + q;
+        if (c < cells_d) {
+          ob[static_cast<size_t>(r0 + r) * d_out + c0 + c] =
+              key_to_float(sorted[sorted_slot(v[q])]);
         }
       }
-      return count;
-    });
-    ob[idx] = key_to_float(key);
+    }
   }
 }
 
@@ -159,27 +499,90 @@ kth_smallest_kernel(const float* __restrict__ x, float* __restrict__ out,
   if (live && lane == 0) out[row] = key_to_float(key);
 }
 
+constexpr int kMaxSharedBytes = 227 * 1024;  // a block's dynamic shared memory on Hopper
+
+constexpr int kMaxDevices = 64;
+
+// Above 48 KB of dynamic shared memory an instance must be granted it first:
+// once a device and size, not every launch (the detector path launches once a
+// frame and is host-bound).
+template <bool kBig>
+int launch_noise(const float* x, float* out, const NoiseLaunch& p, unsigned blocks,
+                 size_t smem, cudaStream_t stream) {
+  static size_t granted[kMaxDevices] = {};  // bytes granted to this instance, by device
+  if (smem > 48 * 1024) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool known = device >= 0 && device < kMaxDevices;
+    if (!known || smem > granted[device]) {
+      err = cudaFuncSetAttribute(os_cfar_2d_noise_kernel<kBig>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (known) granted[device] = smem;
+    }
+  }
+  os_cfar_2d_noise_kernel<kBig><<<blocks, kThreads, smem, stream>>>(x, out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr bool is_power_of_two(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+// Whether the host's launch geometry fits the map, the window and what the
+// kernel assumes of it: a geometry that does not would give wrong noise
+// values without any CUDA error.
+bool noise_launch_is_consistent(const NoiseLaunch& p, int batch) {
+  if (batch < 1 || p.tr < 0 || p.td < 0 || p.gr < 0 || p.gd < 0) return false;
+  const int win_r = 2 * (p.tr + p.gr) + 1, win_d = 2 * (p.td + p.gd) + 1;
+  const int r_out = p.rows - win_r + 1, d_out = p.cols - win_d + 1;
+  const int n_train = win_r * win_d - (2 * p.gr + 1) * (2 * p.gd + 1);
+  if (r_out < 1 || d_out < 1 || p.k < 1 || p.k > n_train) return false;
+  if (p.tile_r < 1 || p.tile_d < 4 || p.tile_d % 4 != 0) return false;
+  if (p.tiles_r != (r_out + p.tile_r - 1) / p.tile_r) return false;
+  if (p.tiles_d != (d_out + p.tile_d - 1) / p.tile_d) return false;
+  const int region_d = p.tile_d + win_d - 1;
+  const long long region = static_cast<long long>(p.tile_r + win_r - 1) * region_d;
+  // a row of a rank copy holds the region and the shifted copy's overhang
+  if (p.words_per_row % 2 != 1 || p.words_per_row < region_d / 2 + 1) return false;
+  // block_sort has 1, 2, 4, ... 64 keys a thread
+  if (!is_power_of_two(p.sort_size) || p.sort_size < kThreads || p.sort_size > 64 * kThreads ||
+      p.sort_size < region)
+    return false;
+  // a rank takes `passes` bits and, offset by kRankBase, stays a finite half
+  if (p.passes < 1 || p.passes > 14 || (1LL << p.passes) < region) return false;
+  // a lane's compare masks sum in 16 bits a half word
+  if (static_cast<long long>(win_r) * (win_d / 2 + 2) >= 65536) return false;
+  return is_power_of_two(p.row_split) && p.row_split <= 32;
+}
+
 }  // namespace
 
 // x: float32 [batch, rows, cols] contiguous, the map at least one window in
 // each axis; out: float32 [batch, rows-2(tr+gr), cols-2(td+gd)]; 1 <= k <=
-// number of training cells; splits >= 1 blocks share a frame.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// number of training cells; the rest is the host's launch geometry
+// (ops/kernels/os_cfar.py :: noise_launch_geometry), whose shared-memory
+// bytes are recomputed here.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue without a
+// launch for a geometry that does not fit the map, the window or the kernel.
 extern "C" int os_cfar_2d_noise(const void* x, void* out, int batch, int rows,
                                 int cols, int tr, int td, int gr, int gd, int k,
-                                int splits, void* stream) {
-  const size_t smem = static_cast<size_t>(rows) * cols * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        os_cfar_2d_noise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  os_cfar_2d_noise_kernel<<<dim3(batch, splits), kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), rows, cols, tr, td,
-      gr, gd, k);
-  return static_cast<int>(cudaGetLastError());
+                                int tile_r, int tile_d, int tiles_r, int tiles_d,
+                                int words_per_row, int sort_size, int passes,
+                                int row_split, void* stream) {
+  const NoiseLaunch p = {rows, cols, tr, td, gr, gd, k, tile_r, tile_d, tiles_r, tiles_d,
+                         words_per_row, sort_size, passes, row_split};
+  if (!noise_launch_is_consistent(p, batch)) return static_cast<int>(cudaErrorInvalidValue);
+  const int region_r = tile_r + 2 * (tr + gr);
+  const size_t smem = sizeof(uint32_t) * (static_cast<size_t>(sort_size) + sort_size / 32 +
+                                          2 * static_cast<size_t>(region_r) * words_per_row);
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(batch) * tiles_r * tiles_d);
+  const float* xp = static_cast<const float*>(x);
+  float* op = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sort_size > 32 * kThreads) return launch_noise<true>(xp, op, p, blocks, smem, s);
+  return launch_noise<false>(xp, op, p, blocks, smem, s);
 }
 
 // x: float32 [m, w] contiguous; out: float32 [m]; 1 <= k <= w.  Launches on

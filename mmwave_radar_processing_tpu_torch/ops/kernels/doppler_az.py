@@ -3,9 +3,10 @@
 Replaces the TPU kernels ``set_responses_pallas_batch``,
 ``set_responses_pallas`` and ``group_responses_pallas_batch`` of the JAX
 package's ``ops/pallas/doppler_az.py``: one function, three layouts, one
-kernel here.  The source is ``csrc/doppler_az_responses.cu`` (one thread per
-output, neighbouring threads on neighbouring velocity bins); it is compiled
-by ``nvcc`` at first use (:mod:`._build`).  The plain PyTorch version and
+kernel here.  The source is ``csrc/doppler_az_responses.cu`` (a thread owns one
+velocity bin and 4 neighbouring angle bins, whose factors and sums it keeps
+in registers; neighbouring threads on neighbouring velocity bins); it is
+compiled by ``nvcc`` at first use (:mod:`._build`).  The plain PyTorch version and
 the dispatch on the device live in :mod:`..doppler_az`.
 
 ``doppler_az_responses.launches`` counts kernel launches.

@@ -113,6 +113,25 @@ def test_response_kernel_equals_plain_version(cuda, shape):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("av,sets", [
+    (7, SETS), (13, ((0, 3, 4), (1, 2, 5), (10, 11, 6))), (60, ((0, 3, 4), (9, 8, 5))),
+    (11, ((0, 1, 2, 3, 4), (5, 6, 7, 8, 9))), (64, SETS), (1, SETS), (25, ((3,), (7,))),
+    (62, SETS),
+], ids=["av7", "av13_rx3", "av60_rx3", "av11_rx5", "av64", "av1", "av25_rx1", "av62"])
+@pytest.mark.parametrize("batch", [1, 33])
+def test_response_kernel_masks_ragged_angle_blocks_and_takes_any_antenna_count(
+        cuda, av, sets, batch):
+    """Angle counts with 1, 2 and 3 bins in the last block of 4; antennas a set other than 4."""
+    n_cols = len(sets) * len(sets[0])
+    args = _spectra(batch, 12, 19, 70, av, n_cols=n_cols, seed=av, device=cuda)
+    before = dkernel.doppler_az_responses.launches
+    got = doppler_az.set_responses(*args, set_idx=sets, nv=70)
+    torch.cuda.synchronize()
+    assert dkernel.doppler_az_responses.launches == before + 1
+    assert got.shape == (batch, len(sets), av, 70)
+    assert torch.equal(got, doppler_az.set_responses_reference(*args, set_idx=sets, nv=70))
+
+
 def test_group_responses_equal_plain_and_unpaired_layout(cuda):
     b, w, nv, av = 4, 19, 70, 60
     u_re, u_im, wgt, fct, fst = _spectra(b, 12, w, nv, av, n_cols=16, seed=3,
@@ -304,6 +323,9 @@ def test_beamformer_processors_on_cuda_match_cpu(cuda, cls):
 ZERO_GUARD = dict(num_train=(3, 2), num_guard=(0, 0), rho=0.5, alpha=2.0)
 ROW_GUARD = dict(num_train=(2, 4), num_guard=(1, 0), rho=0.9, alpha=2.0)
 NO_ROW_TRAIN = dict(num_train=(0, 3), num_guard=(2, 1), rho=0.3, alpha=2.0)
+NARROW = dict(num_train=(2, 1), num_guard=(1, 0), rho=0.6, alpha=2.0)  # a 3-column window
+ONE_COLUMN = dict(num_train=(3, 0), num_guard=(1, 0), rho=0.5, alpha=2.0)
+EVEN_TRAIN = dict(num_train=(3, 4), num_guard=(1, 3), rho=0.8, alpha=2.0)
 
 
 @pytest.mark.parametrize("params", [FLAGSHIP, SECOND, ZERO_GUARD, ROW_GUARD, NO_ROW_TRAIN],
@@ -333,6 +355,61 @@ def test_noise_kernel_equals_plain_version(cuda, params, shape):
     assert bool(torch.isinf(thr[:, edges]).all()) and bool((noise[:, edges] == 0).all())
     # the identity the two OS-CFAR kernels check each other by
     assert torch.equal(x > thr, cfar.os_2d_detect(x, **params))
+
+
+@pytest.mark.parametrize("params", [FLAGSHIP, SECOND, NARROW, ONE_COLUMN, EVEN_TRAIN],
+                         ids=["flagship", "second", "narrow", "one_column", "even_train"])
+@pytest.mark.parametrize("shape", [(1024, 63, 70), (1, 18, 16), (3, 17, 20), (1, 66, 77),
+                                   (9, 50, 45), (2, 100, 90), (200, 31, 33)])
+def test_noise_kernel_equals_plain_version_on_tiled_maps(cuda, params, shape):
+    """Cores that no tile divides, one tile plus a cell, every batch's own tiling."""
+    x = _quantized_maps(shape, seed=shape[1], device=cuda)
+    x[:, ::4, ::5] = float("inf")
+    _, _, mask, k = cfar._geometry(params["num_train"], params["num_guard"], params["rho"])
+    geometry = dict(num_train=params["num_train"], num_guard=params["num_guard"])
+    geo = kernel.noise_launch_geometry(shape[1], shape[2], batch=shape[0], **geometry)
+    before = kernel.os_cfar_2d_noise.launches
+    got = kernel.os_cfar_2d_noise(x, k=k, **geometry)
+    torch.cuda.synchronize()
+    assert kernel.os_cfar_2d_noise.launches == before + 1
+    want = cfar.os_2d_noise_reference(x, k=k, **geometry)
+    assert torch.equal(got, want), (geo, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("num_train,num_guard", [((2, 13), (1, 2)), ((2, 14), (1, 2)),
+                                                 ((1, 15), (0, 0)), ((1, 16), (1, 16)),
+                                                 ((0, 31), (1, 1)), ((2, 32), (1, 0))],
+                         ids=["w31", "w33_t14", "w31_no_guard", "w65_t16", "w65_t31",
+                              "w65_t32"])
+@pytest.mark.parametrize("batch", [1, 40])
+def test_noise_kernel_unrolls_runs_up_to_31_columns_and_loops_beyond(cuda, num_train,
+                                                                     num_guard, batch):
+    """Either side of the widest run whose length the kernel has as a constant."""
+    x = _quantized_maps((batch, 40, 90), seed=batch, device=cuda)
+    x[:, ::5, ::3] = float("inf")
+    for rho in (0.1, 0.75):
+        k = cfar._geometry(num_train, num_guard, rho)[3]
+        got = kernel.os_cfar_2d_noise(x, num_train=num_train, num_guard=num_guard, k=k)
+        want = cfar.os_2d_noise_reference(x, num_train=num_train, num_guard=num_guard, k=k)
+        assert torch.equal(got, want)
+
+
+def test_noise_kernel_takes_the_largest_window_it_sorts(cuda):
+    """An 85 x 65 window: a region above the preferred size, flushed half-precision counts."""
+    x = _quantized_maps((2, 90, 70), seed=1, device=cuda)
+    geometry = dict(num_train=(40, 30), num_guard=(2, 2))
+    geo = kernel.noise_launch_geometry(90, 70, batch=2, **geometry)
+    assert geo.sort_size > kernel.PREFERRED_REGION or geo.tile_r * geo.tile_d <= 64
+    for k in (1, 2750, 5500):
+        got = kernel.os_cfar_2d_noise(x, k=k, **geometry)
+        assert torch.equal(got, cfar.os_2d_noise_reference(x, k=k, **geometry))
+    # a 101 x 85 window: a region of 8,888 values, the 16,384-key sort's own instance
+    x = _quantized_maps((3, 104, 90), seed=2, device=cuda)
+    geometry = dict(num_train=(48, 40), num_guard=(2, 2))
+    assert kernel.noise_launch_geometry(104, 90, batch=3, **geometry).sort_size == 16384
+    for k in (1, 6000, 8560):
+        got = kernel.os_cfar_2d_noise(x, k=k, **geometry)
+        assert torch.equal(got, cfar.os_2d_noise_reference(x, k=k, **geometry))
 
 
 def test_noise_kernel_sorts_infinities_last_and_signs_right(cuda):
@@ -377,6 +454,27 @@ def test_noise_kernel_rejects_what_it_does_not_take(cuda, case):
         x = x[:, :16, :14].contiguous()
     with pytest.raises((ValueError, TypeError)):
         kernel.os_cfar_2d_noise(x, **kw)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tile_d", 54), ("tiles_r", 2), ("tiles_d", 2), ("words_per_row", 36),
+    ("words_per_row", 33), ("sort_size", 4096), ("sort_size", 12288), ("sort_size", 32768),
+    ("passes", 12), ("passes", 15), ("row_split", 3), ("row_split", 64),
+])
+def test_noise_entry_point_refuses_an_inconsistent_geometry(cuda, field, value):
+    """A geometry that does not fit the map would give wrong values with no CUDA error."""
+    x = _quantized_maps((1024, 63, 70), seed=0, device=cuda)
+    out = torch.empty((1024, 47, 56), device=cuda)
+    whole = kernel.noise_launch_geometry(63, 70, (5, 5), (3, 2), 1024)  # one tile a frame
+    assert (whole.tile_d, whole.words_per_row, whole.sort_size, whole.passes) == (56, 37, 8192, 13)
+    geo = whole._replace(**{field: value})
+    launch = kernel._noise_kernel()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    err = launch(x.data_ptr(), out.data_ptr(), 1024, 63, 70, 5, 5, 3, 2, 154, geo.tile_r,
+                 geo.tile_d, geo.tiles_r, geo.tiles_d, geo.words_per_row, geo.sort_size,
+                 geo.passes, geo.row_split, stream)
+    assert err == 1  # cudaErrorInvalidValue, and nothing launched
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("shape,ks", [((500, 152), (1, 77, 106, 152)), ((1, 1), (1,)),
