@@ -13,9 +13,15 @@ failure (exit code != 0):
    each, started together (timed; ptxas registers and spills printed);
 3. CFAR kernel: its mask equals its plain PyTorch version's, bit for bit, on
    quantized exponential maps (ties forced) at B in {1, 7, 1024} of 63x70,
-   at the flagship CFAR geometry and a second one, and on maps of other
-   sizes (one window exactly, smaller than a window, larger, and the largest
-   map of a shipped config, 256x192);
+   at the flagship CFAR geometry and six others (a zero guard, a 3-column
+   window, no training columns beside the guard box, no training rows above
+   it, a 35-column window whose runs are run-time loops), and on maps of
+   other sizes (one window exactly, smaller than a window: no launch, ragged
+   tiles, and the largest map of a shipped config, 256x192, which no single
+   block's shared memory holds); then the compacting entry of the same
+   kernel: its rows, columns, validity and counts equal
+   ``mask_to_indices_2d`` of the plain mask, on batches that hold frames
+   with no detection, with exactly ``capacity`` and with more;
 4. response kernel: the Doppler-azimuth responses equal their plain version,
    bit for bit, at B in {1, 7, 1024} of [12, 19*70] with 60 angle bins, at
    the zoom width nv = 140, at an odd small shape, at angle counts that the
@@ -25,7 +31,9 @@ failure (exit code != 0):
 5. point-cloud slice: ``make_inputs(cfg, 32, seed=7)`` (seeded simulated
    frames, numpy only) through the pipeline on the GPU and on the CPU (the
    plain path that the tests hold to the JAX package): ``count`` and
-   ``valid`` identical, ``points`` within ``POINTS_ATOL``;
+   ``valid`` identical, ``points`` within ``POINTS_ATOL``, and
+   ``compare_outputs`` at its raised gates (set IoU >= 0.95, counts within 2
+   on >= 95% of frames);
 6. velocity slice, coarse and precise: the same frames and altitudes on the
    GPU and on the CPU with the same RANSAC draws (made on the CPU from a
    seeded generator): ``vx`` within ``VX_ATOL`` on every frame, ``velocity``
@@ -52,8 +60,11 @@ failure (exit code != 0):
    thresholds equal ``alpha`` times that noise padded with ``+inf``, and
    ``x > os_2d(x)`` equals the detection kernel's mask bit for bit (the two
    kernels check each other); the k-th smallest along rows against a sort,
-   equal on every row, at [500, 152] for k in {1, 77, 106, 152}, W in
-   {1, 10, 24, 33, 220, 257} and M in {1, 3, 100003}, with ties and ``+inf``;
+   equal on every row, through the kernel that serves each width (the
+   sorting network up to 32 columns, the warp-wide sort up to 256, the search
+   above), for W in {1, 3, 4, 8, 9, 10, 16, 17, 24, 31, 32, 33, 64, 65, 128,
+   129, 152, 220, 256, 257, 300}, k = 1, a middle rank and W, and M in {1, 3,
+   259, 1000, 100003}, with ties, ``+inf`` and both zeros;
 11. detector slice: the same 32 frames, reformatted, frame by frame through
    ``RangeDetector``, ``RangeDopplerDetector2D`` (OS and CA),
    ``RangeDopplerDetectorSequential``, ``RangeDopplerGroundDetector`` and
@@ -70,19 +81,24 @@ failure (exit code != 0):
    over 256 frames (host-limited by nature) with the device's busy share;
 13. each kernel and its plain version timed at the main path's shapes, in
    turns (plain, kernel, kernel, plain), ``torch.kthvalue`` beside the k-th
-   smallest kernel as its library yardstick, and each kernel's bound: the
+   smallest kernel as its library yardstick, the compacting detection entry
+   beside the mask entry followed by ``mask_to_indices_2d`` (these two
+   kernels behind a busy device, so that the time is the device's, with the
+   launch-to-launch time beside it), and each kernel's bound: the
    larger of its bytes (inputs read once, outputs written once) over
    ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``; the noise
    kernel also on continuous maps (within 5% of the quantized ones: it
    searches ranks, not floats), for one frame, at two other windows, and
    with the operations its own design spends (``kernel_own_ops``).
 
-``python3 chip_smoke.py --kernel-times`` runs only the response and noise
-kernels' part of phase 13 (each kernel is held against its plain version
-before it is timed).  To compare two trees on one card, run it from the root
-of each in turns inside one job (parent, change, change, parent); a tree from
-before the option has the same ``time_responses`` and ``time_noise`` to call
-from ``python3 -c``.
+``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
+13: the response, noise, detection and k-th-smallest kernels (each is held
+against its plain version before or while it is timed), and adds the sweeps
+that the default run leaves out: the detection kernel for one frame and at
+other windows, the k-th-smallest kernel at other widths, on rows with a
+denormal and ``+inf`` and for a launch of tens of rows.  To compare two trees
+on one card, run it from the root of each in turns inside one job (parent,
+change, change, parent).
 
 Each path is run on the GPU with the launch counts set to 0 just before and
 read just after; a path that never launched its kernels fails.  Prints JSON
@@ -125,6 +141,10 @@ RANK_REPLACES = {
     "os_cfar_2d_noise": "mmwave_radar_processing_tpu/ops/pallas/os_cfar.py:218",
     "kth_smallest": "mmwave_radar_processing_tpu/ops/pallas/rank_select.py:88",
 }
+NO_SIDES_CFAR_PARAMS = dict(num_train=(2, 0), num_guard=(1, 2), rho=0.5, alpha=1.5)
+NO_BANDS_CFAR_PARAMS = dict(num_train=(0, 3), num_guard=(2, 1), rho=0.5, alpha=1.5)
+#: a 5 x 35 window: its runs are longer than the 31 columns that get a constant length
+WIDE_CFAR_PARAMS = dict(num_train=(1, 14), num_guard=(1, 3), rho=0.5, alpha=2.0)
 ZERO_GUARD_CFAR_PARAMS = dict(num_train=(3, 2), num_guard=(0, 0), rho=0.5, alpha=2.0)
 NARROW_CFAR_PARAMS = dict(num_train=(2, 1), num_guard=(1, 0), rho=0.6, alpha=2.0)
 #: the flagship's 17 x 15 window with other columns: 206 training cells against 220
@@ -182,10 +202,20 @@ def quantized_maps(batch, rows, cols, seed, device):
     return torch.from_numpy(x.astype(np.float32)).to(device)
 
 
-def cuda_ms(fn, iters):
-    """Mean device milliseconds per call of ``fn`` over ``iters`` calls."""
+def cuda_ms(fn, iters, queued=False):
+    """Mean device milliseconds per call of ``fn`` over ``iters`` calls.
+
+    ``queued``: the calls are enqueued behind a matrix product that keeps the
+    device busy for some 20 ms, so the events see the device's time for them
+    and not the host's time to launch them (a kernel of under 0.1 ms is
+    launched more slowly than it runs).
+    """
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        if cuda_ms.ballast is None:
+            cuda_ms.ballast = torch.ones((8192, 8192), device="cuda")
+        torch.mm(cuda_ms.ballast, cuda_ms.ballast)
     start.record()
     for _ in range(iters):
         fn()
@@ -194,29 +224,40 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+cuda_ms.ballast = None
+
+
 def check_kernel(device):
     """Kernel vs plain version on the same CUDA tensors; returns max |error|."""
     from mmwave_radar_processing_tpu_torch.ops.cfar import (
         os_2d_detect, os_2d_detect_reference,
     )
     from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import (
-        os_cfar_2d_detect,
+        detect_launch_geometry, frame_fits_one_block, os_cfar_2d_detect,
     )
 
     cases = [(p, (b, 63, 70)) for p in (CFAR_PARAMS, SECOND_CFAR_PARAMS)
              for b in (1, 7, 1024)]
+    cases += [(p, (b, 63, 70)) for b in (1, 33)
+              for p in (ZERO_GUARD_CFAR_PARAMS, NARROW_CFAR_PARAMS, NO_SIDES_CFAR_PARAMS,
+                        NO_BANDS_CFAR_PARAMS, WIDE_CFAR_PARAMS, OTHER_COLUMNS_CFAR_PARAMS)]
     cases += [(CFAR_PARAMS, (3, 17, 15)),   # exactly one window
-              (CFAR_PARAMS, (2, 10, 12)),   # smaller than a window: all False
+              (CFAR_PARAMS, (2, 10, 12)),   # smaller than a window: all False, no launch
               (SECOND_CFAR_PARAMS, (5, 64, 128)),
-              (CFAR_PARAMS, (2, 256, 192))]  # 196 KB: above the 48 KB default
+              (CFAR_PARAMS, ragged_noise_shape(CFAR_PARAMS, 1)),  # tiles that divide no axis
+              (CFAR_PARAMS, (2, 256, 192)),     # no one block's shared memory holds it
+              (CFAR_PARAMS, (1024, 256, 192))]
     max_err = 0
     for i, (params, shape) in enumerate(cases):
         x = quantized_maps(*shape, seed=i, device=device)
+        _, lost_r, lost_d = window_cells(params)
+        expected = 0 if shape[1] <= lost_r or shape[2] <= lost_d else 1
         before = os_cfar_2d_detect.launches
         got = os_2d_detect(x, **params)
         torch.cuda.synchronize()
-        if os_cfar_2d_detect.launches != before + 1:
-            raise RuntimeError(f"kernel launch not counted for {shape}")
+        if os_cfar_2d_detect.launches != before + expected:
+            raise RuntimeError(f"{os_cfar_2d_detect.launches - before} launches counted "
+                               f"for {shape}, expected {expected}")
         want = os_2d_detect_reference(x, **params)
         err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
         max_err = max(max_err, err)
@@ -226,8 +267,75 @@ def check_kernel(device):
                 f"{int((got != want).sum())} cells differ")
         if shape[1:] == (63, 70) and not bool(want.any()):
             raise RuntimeError(f"no detections at {shape}: a vacuous check")
+        geo = (detect_launch_geometry(shape[1], shape[2], tuple(params["num_train"]),
+                                      tuple(params["num_guard"]), shape[0])._asdict()
+               if expected else None)
         emit(phase="kernel", shape=list(shape), cfar=params,
-             detections=int(want.sum()), equal=True)
+             detections=int(want.sum()), equal=True, geometry=geo)
+    if frame_fits_one_block(256, 192, (5, 5), (3, 2)):
+        raise RuntimeError("a 256x192 map was to exceed one block's shared memory")
+    return float(max_err)
+
+
+def check_compact_kernel(device):
+    """The compacting entry vs ``mask_to_indices_2d`` of the plain mask: four equal outputs.
+
+    Each batch holds a frame with no detection (a constant map) and, by the
+    choice of ``capacity`` from the frames' own counts, a frame with exactly
+    ``capacity`` detections and frames with more and with fewer.  A frame too
+    large for one block takes the mask kernel and ``mask_to_indices_2d``: the
+    same four outputs.  Returns max |error| over the index outputs.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import cfar, masked
+    from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import (
+        frame_fits_one_block, os_cfar_2d_detect,
+    )
+
+    cases = [(CFAR_PARAMS, (1024, 63, 70)), (CFAR_PARAMS, (1, 63, 70)),
+             (SECOND_CFAR_PARAMS, (33, 63, 70)), (NARROW_CFAR_PARAMS, (7, 40, 81)),
+             (WIDE_CFAR_PARAMS, (5, 30, 80)), (CFAR_PARAMS, (3, 17, 15)),
+             (CFAR_PARAMS, (2, 10, 12)), (CFAR_PARAMS, (9, 128, 128)),
+             (CFAR_PARAMS, (3, 256, 192))]
+    max_err = 0
+    for i, (params, shape) in enumerate(cases):
+        x = quantized_maps(*shape, seed=40 + i, device=device)
+        if shape[0] > 1:
+            x[0] = 1.0  # a constant map: nothing lies below a cell once scaled by alpha >= 1
+        _, lost_r, lost_d = window_cells(params)
+        has_interior = shape[1] > lost_r and shape[2] > lost_d
+        plain_mask = cfar.os_2d_detect_reference(x, **params)
+        counts = plain_mask.sum(dim=(1, 2))
+        middle = int(counts.sort().values[len(counts) // 2])
+        capacities = sorted({1, 128, max(1, middle), int(counts.max()) + 3})
+        for capacity in capacities:
+            before = os_cfar_2d_detect.launches
+            got = cfar.os_2d_detect_compact(x, capacity, **params)
+            torch.cuda.synchronize()
+            launched = os_cfar_2d_detect.launches - before
+            if launched != int(has_interior):
+                raise RuntimeError(f"{launched} launches counted at {shape}")
+            want = masked.mask_to_indices_2d(plain_mask, capacity)
+            for name, g, w in zip(("rows", "cols", "valid", "count"), got, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise RuntimeError(f"compact {name}: {g.dtype} {tuple(g.shape)}, "
+                                       f"expected {w.dtype} {tuple(w.shape)}")
+                if not torch.equal(g, w):
+                    raise RuntimeError(
+                        f"compact {name} != mask_to_indices_2d at {shape} {params}, "
+                        f"capacity {capacity}: {int((g != w).sum())} entries differ")
+                if name in ("rows", "cols"):
+                    max_err = max(max_err, int((g - w).abs().max()))
+        fused = has_interior and frame_fits_one_block(
+            shape[1], shape[2], tuple(params["num_train"]), tuple(params["num_guard"]))
+        if shape[0] > 8 and fused and not (
+                int(counts.min()) == 0 and middle in capacities
+                and int((counts > middle).sum()) and int((counts < middle).sum())):
+            raise RuntimeError(f"frames with 0, exactly and over capacity wanted at {shape}: "
+                               f"counts {counts.tolist()[:8]}...")
+        emit(phase="compact_kernel", shape=list(shape), cfar=params, capacities=capacities,
+             one_block_a_frame=bool(fused), frames_without_detections=int((counts == 0).sum()),
+             frames_at_a_capacity=int((counts == middle).sum()),
+             frames_over_it=int((counts > middle).sum()), equal=True)
     return float(max_err)
 
 
@@ -280,7 +388,30 @@ def check_slice(cfg, gpu_pipeline, device):
                            f"valid: {32 - same_frames} of 32 frames")
     if not pts_err <= POINTS_ATOL:
         raise RuntimeError(f"GPU points differ from the CPU port's by {pts_err}")
+    raised_gates("slice", out_cpu, gpu)
     return launches
+
+
+def raised_gates(phase, cpu, gpu):
+    """``compare_outputs`` of a GPU point cloud against the CPU port's, at the raised gates.
+
+    The port's one precision is full float32, so its leaves go under
+    ``pointcloud_f32``: set IoU >= 0.95, counts within 2 on >= 95% of frames.
+    Emits the report's leaves; raises when a gate fails.
+    """
+    from mmwave_radar_processing_tpu_torch.utils.verify import compare_outputs
+
+    def leaves(batch):
+        return {f"pointcloud_f32/{name}": getattr(batch, name).numpy()
+                for name in ("points", "valid", "count")}
+
+    report = compare_outputs(leaves(cpu), leaves(gpu))
+    emit(phase=f"{phase}_raised_gates", ok=report["ok"], leaves=report["leaves"])
+    gates = {leaf["leaf"]: leaf.get("gate") for leaf in report["leaves"]}
+    if gates["pointcloud_f32/points"] != 0.95 or gates["pointcloud_f32/count"] != 0.95:
+        raise RuntimeError(f"{phase}: the raised gates were not applied: {gates}")
+    if not report["ok"]:
+        raise RuntimeError(f"{phase}: compare_outputs failed a raised gate: {report}")
 
 
 def timing(kernel_ms, plain_ms, n_bytes, n_ops, library_ms=None):
@@ -290,22 +421,72 @@ def timing(kernel_ms, plain_ms, n_bytes, n_ops, library_ms=None):
             "library_ms": library_ms}
 
 
-def time_cfar(device, batch=1024):
-    """Detection kernel and plain version at [batch, 63, 70], in turns; no library call computes it."""
-    from mmwave_radar_processing_tpu_torch.ops.cfar import (
-        os_2d_detect, os_2d_detect_reference,
-    )
+def time_cfar(device, batch=1024, sweeps=False):
+    """Detection kernel and plain version at [batch, 63, 70], in turns; no library call computes it.
+
+    Then the compacting entry, which the pipelines launch, in turns with its
+    plain version (the plain mask, then ``mask_to_indices_2d``); beside it the
+    mask entry followed by ``mask_to_indices_2d`` (what the pipelines ran
+    before).  Every time is the device's, taken behind a busy device;
+    ``launch_to_launch_ms`` is the same call timed without that, the host's
+    time to issue it included.  ``sweeps`` adds one frame launch to launch and
+    three other windows.  Returns the compacting entry's ``timing`` with the
+    mask entry's under ``"mask_entry"``.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import cfar, masked
 
     x = quantized_maps(batch, 63, 70, seed=11, device=device)
     kernel_ms, plain_ms, turns = take_turns(
-        lambda: os_2d_detect(x, **CFAR_PARAMS),
-        lambda: os_2d_detect_reference(x, **CFAR_PARAMS), 50, 20)
+        lambda: cfar.os_2d_detect(x, **CFAR_PARAMS),
+        lambda: cfar.os_2d_detect_reference(x, **CFAR_PARAMS), 50, 20, queued=True)
     n_train, lost_r, lost_d = window_cells(CFAR_PARAMS)
     cells = batch * (63 - lost_r) * (70 - lost_d)
     # float32 in, one byte a cell out; a multiply, a compare and an add per training cell
     res = timing(kernel_ms, plain_ms, 5 * x.numel(), 3 * n_train * cells)
-    emit(phase="cfar_timing", shape=[batch, 63, 70], turns=turns, **res)
-    return res
+    emit(phase="cfar_timing", shape=[batch, 63, 70], turns=turns, timed_behind_a_busy_device=True,
+         launch_to_launch_ms=cuda_ms(lambda: cfar.os_2d_detect(x, **CFAR_PARAMS), 50), **res)
+
+    edges = (lost_r // 2, lost_d // 2)
+
+    def unfused():
+        return masked.mask_to_indices_2d(cfar.os_2d_detect(x, **CFAR_PARAMS), 128,
+                                         interior=edges)
+
+    def fused():
+        return cfar.os_2d_detect_compact(x, 128, **CFAR_PARAMS)
+
+    def plain():
+        return masked.mask_to_indices_2d(cfar.os_2d_detect_reference(x, **CFAR_PARAMS), 128)
+
+    for other in (unfused, plain):
+        for got, want in zip(fused(), other()):
+            if not torch.equal(got, want):
+                raise RuntimeError(f"the compacting entry differs from {other.__name__}() "
+                                   "at the timed shape")
+    fused_ms, plain_ms, compact_turns = take_turns(fused, plain, 50, 10, queued=True)
+    unfused_ms = [cuda_ms(unfused, 20, queued=True) for _ in range(2)]
+    # float32 in; two int64, a bool and (a frame) an int32 out for each of 128 slots
+    compact = timing(fused_ms, plain_ms, 4 * x.numel() + batch * (128 * 17 + 4),
+                     3 * n_train * cells)
+    extra = {}
+    if sweeps:
+        extra["one_frame_launch_ms"] = cuda_ms(
+            lambda: cfar.os_2d_detect(x[:1], **CFAR_PARAMS), 200)
+        extra["one_frame_compact_launch_ms"] = cuda_ms(
+            lambda: cfar.os_2d_detect_compact(x[:1], 128, **CFAR_PARAMS), 200)
+        others = extra["other_windows"] = {}
+        for name, params in (("other_columns", OTHER_COLUMNS_CFAR_PARAMS),
+                             ("second", SECOND_CFAR_PARAMS), ("wide", WIDE_CFAR_PARAMS)):
+            if not torch.equal(cfar.os_2d_detect(x, **params),
+                               cfar.os_2d_detect_reference(x, **params)):
+                raise RuntimeError(f"detection kernel != plain version at the {name} window")
+            others[name] = {
+                "n_train": window_cells(params)[0],
+                "ms": cuda_ms(lambda: cfar.os_2d_detect(x, **params), 50, queued=True)}
+    emit(phase="cfar_compact_timing", shape=[batch, 63, 70], capacity=128,
+         turns=compact_turns, mask_kernel_then_topk_ms=unfused_ms,
+         launch_to_launch_ms=cuda_ms(fused, 50), **extra, **compact)
+    return {**compact, "mask_entry": res}
 
 
 def response_inputs(batch, n_ch, win_rows, nv, fct, fst, seed, device):
@@ -506,6 +687,7 @@ def check_combined(cfg, device, frames):
     emit(phase="combined_slice", batch=len(frames[0]), cfar_launches=launches[0],
          response_launches=launches[1], points_max_abs_diff=pts_err,
          **velocity_agreement(vel_gpu, vel_cpu))
+    raised_gates("combined", pc_cpu, pc_gpu)
     return launches
 
 
@@ -780,8 +962,11 @@ def selection_compares(n, k):
     return n + min(k, n - k)
 
 
-def take_turns(kernel, plain, kernel_iters, plain_iters, library=None):
+def take_turns(kernel, plain, kernel_iters, plain_iters, library=None, queued=False):
     """Mean ms of ``kernel`` and ``plain`` after a warm-up: plain, kernel, kernel, plain.
+
+    ``queued``: every call is timed behind a busy device (:func:`cuda_ms`),
+    so a short kernel's time is the device's.
 
     With a ``library`` call it is warmed up like the others and timed inside
     the turns, at the kernel's iteration count: plain, kernel, library,
@@ -797,7 +982,7 @@ def take_turns(kernel, plain, kernel_iters, plain_iters, library=None):
         fn()
     times = {name: [] for name in fns}
     for turn in order:
-        times[turn].append(cuda_ms(*fns[turn]))
+        times[turn].append(cuda_ms(*fns[turn], queued=queued))
     return sum(times["kernel"]) / 2, sum(times["plain"]) / 2, times
 
 
@@ -901,27 +1086,35 @@ def tile_plus_a_cell_noise_shape(params, batch):
 
 
 def check_kth_kernel(device):
-    """k-th smallest kernel vs a sort, equal on every row; returns max |error|."""
+    """k-th smallest kernel vs a sort, equal on every row, at every width; returns max |error|."""
     from mmwave_radar_processing_tpu_torch.ops import cfar
     from mmwave_radar_processing_tpu_torch.ops.kernels.rank_select import kth_smallest
 
-    cases = [((500, 152), (1, 77, 106, 152)), ((1000, 1), (1,)), ((1000, 10), (1, 7, 10)),
-             ((1000, 24), (12,)), ((1000, 220), (154,)), ((1000, 257), (1, 129, 257)),
+    def ranks(w):
+        return tuple(sorted({1, max(1, (7 * w) // 10), w}))
+
+    cases = [((500, 152), (1, 77, 106, 152)), ((1000, 10), (1, 7, 10)),
              ((1, 24), (12,)), ((3, 220), (154,)), ((100003, 24), (12,)),
-             ((100003, 33), (20,))]
+             ((100003, 33), (20,)), ((1000, 220), (154,))]
+    # widths on both sides of 32 and 256, where the kernel changes
+    cases += [((m, w), ranks(w))
+              for w in (1, 3, 4, 8, 9, 16, 17, 24, 31, 32, 33, 64, 65, 128, 129, 220, 256, 257, 300)
+              for m in (1000, 259)]  # 259: not a multiple of the block's 256 rows or 8 warps
     max_err = 0.0
     for i, (shape, ks) in enumerate(cases):
         x = quantized_maps(1, *shape, seed=80 + i, device=device)[0] - 0.5
         x[0, ::2] = float("inf")
         if shape[0] > 2:
             x[1] = x[1, 0].clone()  # a row of one value: every rank ties
+            x[2, ::3] = -0.0        # both zeros in a row
+            x[2, 1::3] = 0.0
         for k in ks:
+            want = cfar.kth_smallest_reference(x, k)
             before = kth_smallest.launches
             got = cfar._rank_reduce(x, k)
             torch.cuda.synchronize()
             if kth_smallest.launches != before + 1:
                 raise RuntimeError(f"k-th smallest launch not counted at {shape}")
-            want = cfar.kth_smallest_reference(x, k)
             if not torch.equal(got, want):
                 raise RuntimeError(f"k-th smallest != sort at {shape}, k={k}: "
                                    f"{int((got != want).sum())} rows differ")
@@ -1120,13 +1313,18 @@ def time_noise(device, batch=1024):
     return res
 
 
-def time_kth(device):
+def time_kth(device, sweeps=False):
     """k-th smallest kernel, a sort and ``torch.kthvalue`` at two of the path's shapes.
 
     ``[168448, 220]``, k = 154: the training cells of 64 flagship maps;
     ``[1024*63*38, 24]``, k = 12: 1024 frames of the ground detector's
     velocity CFAR.  Returns ``{"narrow" | "wide": timing}``, with
-    ``torch.kthvalue`` as the library call.
+    ``torch.kthvalue`` as the library call.  Every time is the device's, taken
+    behind a busy device; ``launch_to_launch_ms`` is the kernel timed without
+    that.  ``sweeps`` adds the wide shape on rows that hold a denormal and
+    ``+inf`` (the kernel's work does not depend on the data), the same bytes
+    cut to other widths, and a launch of tens of rows, as the per-frame
+    detectors make it.
     """
     from mmwave_radar_processing_tpu_torch.ops import cfar
 
@@ -1140,14 +1338,30 @@ def time_kth(device):
             raise RuntimeError(f"torch.kthvalue disagrees with the kernel at {(m, w)}")
         kernel_ms, plain_ms, turns = take_turns(
             lambda: cfar._rank_reduce(x, k),
-            lambda: cfar.kth_smallest_reference(x, k), 10, 3, library=library)
-        # the bound counts the compares a selection needs; the kernel's own
-        # bitwise search spends 32 passes of a compare and an add per element
+            lambda: cfar.kth_smallest_reference(x, k), 10, 3, library=library, queued=True)
+        # the bound counts the compares a selection needs, not what the kernel spends
         res[name] = timing(kernel_ms, plain_ms, 4 * m * (w + 1),
                            selection_compares(w, k) * m,
                            library_ms=sum(turns["library"]) / 2)
+        extra = {"launch_to_launch_ms": cuda_ms(lambda: cfar._rank_reduce(x, k), 10)}
+        if sweeps:
+            small = x[:63].contiguous()
+            extra["launch_of_63_rows_ms"] = cuda_ms(lambda: cfar._rank_reduce(small, k), 200)
+        if sweeps and name == "wide":
+            widths = extra["other_widths_ms"] = {}
+            for width in (8, 16, 32, 33, 48, 64, 65, 100, 128, 129, 192, 300):
+                # the same bytes at every width, so that the times compare
+                rows = x.numel() // width
+                part, rank = x.view(-1)[: rows * width].view(rows, width), (7 * width) // 10
+                widths[str(width)] = cuda_ms(lambda: cfar._rank_reduce(part, rank), 5,
+                                             queued=True)
+            x[:, 0], x[:, 1] = 1e-45, float("inf")  # rows on which no bit is shared
+            if not torch.equal(cfar._rank_reduce(x, k), cfar.kth_smallest_reference(x, k)):
+                raise RuntimeError("k-th smallest != sort on rows with a denormal and +inf")
+            extra["denormal_and_inf_rows_ms"] = cuda_ms(lambda: cfar._rank_reduce(x, k), 10,
+                                                        queued=True)
         emit(phase="kth_timing", shape=[m, w], k=k, library="torch.kthvalue",
-             turns=turns, kernel_own_ops=32 * 2 * w * m, **res[name])
+             turns=turns, timed_behind_a_busy_device=True, **extra, **res[name])
         del x
     return res
 
@@ -1212,7 +1426,7 @@ def build_kernels():
 
 
 def kernel_times():
-    """The response and noise kernels alone, each beside its plain version, as phase 13 times them."""
+    """The hand-written kernels alone, each beside its plain version, as phase 13 times them."""
     from mmwave_radar_processing_tpu_torch import build_velocity_pipeline, load_cfg
 
     device = torch.device("cuda", 0)
@@ -1221,6 +1435,8 @@ def kernel_times():
     cfg = load_cfg(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
     time_responses(build_velocity_pipeline(cfg, device=device), device)
     time_noise(device)
+    time_cfar(device, sweeps=True)
+    time_kth(device, sweeps=True)
 
 
 def main():
@@ -1257,7 +1473,7 @@ def main():
         raise RuntimeError("TF32 is on: the port runs full float32 only")
 
     build_kernels()
-    max_err = check_kernel(device)
+    max_err = max(check_kernel(device), check_compact_kernel(device))
     resp_err = check_responses(velocity, device)
     launches = check_slice(cfg, gpu_pipeline, device)
     frames = make_inputs(cfg, 32, seed=7)
@@ -1311,6 +1527,8 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES, "launches": launches + comb_launches[0],
+         # the paths launch its compacting entry, whose times these are; the
+         # mask entry's (the detector classes' and the cross-check's) are under "mask_entry"
          "max_abs_err": max_err, **cfar_ms},
         # TPU kernels #2 and #3, over the detector slice's runs; #3 is timed
         # at the ground detector's width (its times at [168448, 220] are

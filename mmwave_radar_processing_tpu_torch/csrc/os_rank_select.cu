@@ -1,5 +1,5 @@
 // Rank selection for OS-CFAR on Hopper (sm_90a): the k-th smallest of a set of
-// float32 values, exact.  Two entry points, one kind of search.
+// float32 values, exact.  Two entry points.
 //
 //   os_cfar_2d_noise  replaces the TPU kernel
 //     mmwave_radar_processing_tpu/ops/pallas/os_cfar.py :: os_cfar_2d_noise_fused
@@ -10,8 +10,8 @@
 //     mmwave_radar_processing_tpu/ops/pallas/rank_select.py :: kth_smallest
 //     the k-th smallest (1-based) along the last axis of [M, W].
 //
-// Selection: a bitwise search.  key(x), the order-preserving integer image of
-// the float, flips the sign bit of a non-negative float and all bits of a
+// Selection in the noise map, and in kth_smallest above 256 columns: a bitwise
+// search.  key(x), the order-preserving integer image of the float, flips the sign bit of a non-negative float and all bits of a
 // negative one, so unsigned key order is float order.  The k-th smallest of a
 // set of integers is the largest v with #{element < v} <= k-1; v is built from
 // the top bit down, one counting pass over the set per bit.  The result is one
@@ -78,19 +78,35 @@
 // about two thirds, near the SM's instruction rate; the sort and the ranks
 // take the rest.
 //
-// kth_smallest: a group of 1 to 32 lanes a row (a power of two, the smallest
-// that gives each lane at most 8 columns; chosen from W by the entry point),
-// the group's counts summed with xor shuffles; the ragged edge is masked,
-// nothing is padded in memory.  Up to W = 256 a lane reads its columns once
-// and keeps their keys in 8 registers over the 32 passes (slots past the
-// row's end hold the largest key, which no pass counts); above that each pass
-// re-reads the row, which stays in L1, and converts again.  Keeping the keys
-// matters: converting every element in every pass, with a thread a row (rows
-// 4W bytes apart across a warp), took 3.4 times as long at [2451456, 24] and
-// 1.75 times at [168448, 220] (NVIDIA H100 80GB HBM3, 700 W).  Bound: [M, W]
-// moves 4*M*(W+1) bytes, and a selection needs about W + min(k, W-k) compares
-// a row: bytes.  The search's own 32*M*W compare-adds (over float keys: rows
-// are too short to pay for a sort) are what it spends.
+// kth_smallest.  Bound: [M, W] moves 4*M*(W+1) bytes, and a selection needs
+// about W + min(k, W-k) compares a row: bytes.  Three forms, by the width
+// (nothing is padded in memory in any of them):
+//   W <= 32: a thread a row.  The row's keys sit in W registers and a sorting
+//     network orders them: Batcher's odd-even merge sort of the next power of
+//     two, less every compare-exchange that touches a pad (pads are the
+//     largest key and sit at the top, so those change nothing): 132 at W = 24,
+//     191 at 32, each an unsigned min and max, exact on ties and zeros.  The
+//     list is generated at build time (ops/kernels/sorting_network.py), with
+//     literal indices.  k is a run-time argument: register k-1 comes out of a
+//     tree of bitwise selects, never a run-time register index.  The block's
+//     rows are staged through shared memory with coalesced loads.
+//   32 < W <= 256: a warp a row, 2, 4 or 8 keys a lane, a bitonic network
+//     whose steps stay in the thread below the lane's keys and cross lanes by
+//     shuffle above; position k-1 is then one shuffle away.
+//   W > 256: the bitwise search of the header above, 32 lanes a row, each
+//     pass re-reading the row (it stays in L1).  Up to 256 columns the same
+//     search with the keys once in 8 registers a lane was the only form before
+//     ("the search" in the times below).
+// Times (NVIDIA H100 80GB HBM3, 700.00 W, in turns in one job).  [2451456, 24],
+// k = 12: the search 0.527-0.553 ms; the network with a thread reading its own
+// row as 16-byte vectors 0.229-0.236 (the compiler kept part of the keys in
+// local memory there); staged through shared memory 0.165, kept; the bytes
+// need 0.073.  [168448, 220], k = 154: the search 0.389-0.396; starting it
+// below the bits that all keys of a warp's rows share (a minimum and a maximum
+// by shuffle first) 0.445-0.452 on exponential rows and on rows with a
+// denormal and +inf alike: slower, dropped; the warp-wide sort 0.166-0.168,
+// kept.  On the same 148 MB cut to other widths the kept forms took 0.37 (W =
+// 8) to 0.53 (W = 32) and 0.43 (W = 129) to 0.51 (W = 33) of the search's time.
 //
 // Built by nvcc into a shared library with plain C entry points, loaded with
 // ctypes (mmwave_radar_processing_tpu_torch/ops/kernels/_build.py).
@@ -98,6 +114,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch_helpers.cuh"
 
 namespace {
 
@@ -189,42 +207,6 @@ __device__ __forceinline__ void count_pair(const __half2* __restrict__ wp, int l
   } else if (odd) {
     a0.add(__hlt2_mask(wp[0], t0_low));
     a2.add(__hlt2_mask(wp[1], t2_low));
-  }
-}
-
-template <int kValue>
-struct Constant {
-  __device__ constexpr operator int() const { return kValue; }
-};
-
-// Calls f(c) with c a compile-time constant equal to `len` (a Constant, which
-// converts to int), kLo <= len <= kHi, found by bisection: the body that f
-// inlines then has its run length as a constant, and count_pair's loops
-// unroll into straight-line code.
-template <int kLo, int kHi, class F>
-__device__ __forceinline__ void with_constant_length(int len, F&& f) {
-  if constexpr (kLo == kHi) {
-    f(Constant<kLo>{});
-  } else {
-    constexpr int kMid = (kLo + kHi) / 2;
-    if (len <= kMid) {
-      with_constant_length<kLo, kMid>(len, f);
-    } else {
-      with_constant_length<kMid + 1, kHi>(len, f);
-    }
-  }
-}
-
-// Runs of up to kMaxConstantRun columns get their length as a constant; a
-// wider window's runs are loops.
-constexpr int kMaxConstantRun = 31;
-
-template <class F>
-__device__ __forceinline__ void with_run_length(int len, F&& f) {
-  if (len > kMaxConstantRun) {
-    f(len);
-  } else {
-    with_constant_length<0, kMaxConstantRun>(len, f);
   }
 }
 
@@ -462,72 +444,182 @@ os_cfar_2d_noise_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-constexpr int kKeysPerLane = 8;
-
-// `group` lanes a row (a power of two up to 32, so a group never straddles a
-// warp).  kInRegisters: group * kKeysPerLane >= w, each lane keeps its keys.
-template <bool kInRegisters>
+// The search, for rows wider than 256 columns: a warp a row, each pass
+// re-reading the row (it stays in L1).
 __global__ void __launch_bounds__(kThreads)
-kth_smallest_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    long long m, int w, int k, int group) {
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / group;
-  const int lane = threadIdx.x % group;
-  // lanes past the last row stay for the shuffles: they redo row 0, store nothing
+kth_search_kernel(const float* __restrict__ x, float* __restrict__ out, long long m, int w,
+                  int k) {
+  const long long row = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  // warps past the last row stay for the shuffles: they redo row 0, store nothing
   const bool live = row < m;
   const float* xr = x + (live ? row : 0) * w;
-  uint32_t keys[kKeysPerLane];
-  if constexpr (kInRegisters) {
-#pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + i * group;
-      keys[i] = j < w ? float_to_key(xr[j]) : 0xFFFFFFFFu;
-    }
-  }
   const uint32_t key = kth_smallest_key(k, [&](uint32_t t) {
     int count = 0;
-    if constexpr (kInRegisters) {
-#pragma unroll
-      for (int i = 0; i < kKeysPerLane; ++i) count += keys[i] < t ? 1 : 0;
-    } else {
-      for (int j = lane; j < w; j += group) count += float_to_key(xr[j]) < t ? 1 : 0;
-    }
-    for (int o = group >> 1; o > 0; o >>= 1)
-      count += __shfl_xor_sync(0xFFFFFFFFu, count, o);
+    for (int j = lane; j < w; j += 32) count += float_to_key(xr[j]) < t ? 1 : 0;
+    for (int o = 16; o > 0; o >>= 1) count += __shfl_xor_sync(0xFFFFFFFFu, count, o);
     return count;
   });
   if (live && lane == 0) out[row] = key_to_float(key);
 }
 
-constexpr int kMaxSharedBytes = 227 * 1024;  // a block's dynamic shared memory on Hopper
+// --- rows of up to 32 columns: a sorting network in registers, a thread a row ---
 
-constexpr int kMaxDevices = 64;
+#define KTH_CE(i, j)                                      \
+  {                                                       \
+    const uint32_t lo_ = min(key[i], key[j]);             \
+    key[j] = max(key[i], key[j]);                         \
+    key[i] = lo_;                                         \
+  }
+// kth_sort_network<W>(key): generated at build time from
+// ops/kernels/sorting_network.py (Batcher's odd-even merge sort, pruned of the
+// compare-exchanges that touch a pad), every index a literal
+#include "kth_network.h"
+#undef KTH_CE
 
-// Above 48 KB of dynamic shared memory an instance must be granted it first:
-// once a device and size, not every launch (the detector path launches once a
-// frame and is host-bound).
+// key[idx], idx < kN at run time, without a run-time register index (which
+// would put the keys in local memory): a tree of selects on the bits of idx,
+// each written as bit logic (one LOP3) so that the compiler cannot turn the
+// choice between two neighbours back into an indexed load.
+template <int kN>
+__device__ __forceinline__ uint32_t select_register(const uint32_t (&key)[kN], int idx) {
+  constexpr int kBits = kN <= 1 ? 0 : kN <= 2 ? 1 : kN <= 4 ? 2 : kN <= 8 ? 3 : kN <= 16 ? 4 : 5;
+  constexpr int kPadded = 1 << kBits;
+  static_assert(kN <= 32, "at most 32 registers");
+  uint32_t t[kPadded];
+#pragma unroll
+  for (int i = 0; i < kPadded; ++i) t[i] = key[i < kN ? i : kN - 1];
+#pragma unroll
+  for (int bit = 0; bit < kBits; ++bit) {
+    const uint32_t odd = 0u - ((static_cast<uint32_t>(idx) >> bit) & 1u);  // all ones or none
+#pragma unroll
+    for (int i = 0; i < (kPadded >> (bit + 1)); ++i)
+      t[i] = t[2 * i] ^ ((t[2 * i] ^ t[2 * i + 1]) & odd);
+  }
+  return t[0];
+}
+
+// A thread a row of kW columns.  The block's rows go through shared memory:
+// coalesced loads, an odd row stride so that the threads' reads fall on
+// different banks.  (A thread reading its own row as 16-byte vectors, rows 4*kW
+// bytes apart across a warp, took 1.4 times as long at kW = 24.)
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+kth_network_kernel(const float* __restrict__ x, float* __restrict__ out, long long m, int k) {
+  constexpr int kStride = kW | 1;
+  __shared__ float staged[kThreads * kStride];
+  const long long row0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const long long row = row0 + threadIdx.x;
+  const long long rows_here = m - row0 < kThreads ? m - row0 : kThreads;
+  const int values = static_cast<int>(rows_here) * kW;
+  const float* xb = x + row0 * kW;
+  for (int i = threadIdx.x; i < values; i += kThreads) {
+    const int r = i / kW;
+    staged[r * kStride + (i - r * kW)] = xb[i];
+  }
+  __syncthreads();
+  // a thread past the last row sorts what the memory holds and stores nothing
+  uint32_t key[kW];
+#pragma unroll
+  for (int c = 0; c < kW; ++c) key[c] = float_to_key(staged[threadIdx.x * kStride + c]);
+  kth_sort_network<kW>(key);
+  const uint32_t chosen = select_register<kW>(key, k - 1);
+  if (row < m) out[row] = key_to_float(chosen);
+}
+
+// --- rows of 33 to 256 columns: a warp sorts a row, kE = 2, 4 or 8 keys a lane ---
+
+// A bitonic network over 32 * kE keys, ascending; lane l holds positions
+// [l*kE, (l+1)*kE).  The first step of a merge pairs position i with
+// i ^ (size - 1), the later steps with i ^ j, so every compare-exchange leaves
+// the smaller key at the lower position and no direction bit is needed.
+// A step stays inside the thread for a distance below kE and crosses lanes by
+// shuffle above: 15 of 36 steps at kE = 8.
+template <int kE>
+__device__ __forceinline__ void warp_sort(uint32_t (&key)[kE], int lane) {
+  constexpr int kLog = kE == 2 ? 6 : kE == 4 ? 7 : 8;  // log2(32 * kE)
+  static_assert(kE == 2 || kE == 4 || kE == 8, "2, 4 or 8 keys a lane");
+#pragma unroll
+  for (int log_size = 1; log_size <= kLog; ++log_size) {
+    const int size = 1 << log_size;
+    if (size <= kE) {
+#pragma unroll
+      for (int s = 0; s < kE; ++s) {
+        const int partner = s ^ (size - 1);
+        if (s < partner) {
+          const uint32_t lo = min(key[s], key[partner]);
+          key[partner] = max(key[s], key[partner]);
+          key[s] = lo;
+        }
+      }
+    } else {
+      // position i ^ (size - 1): slot kE - 1 - s of lane ^ (size / kE - 1)
+      const int lanes = size / kE;
+      const bool lower = (lane & (lanes >> 1)) == 0;
+      uint32_t other[kE];
+#pragma unroll
+      for (int s = 0; s < kE; ++s)
+        other[s] = __shfl_xor_sync(0xFFFFFFFFu, key[kE - 1 - s], lanes - 1);
+#pragma unroll
+      for (int s = 0; s < kE; ++s)
+        key[s] = lower ? min(key[s], other[s]) : max(key[s], other[s]);
+    }
+#pragma unroll
+    for (int log_j = log_size - 2; log_j >= 0; --log_j) {
+      const int j = 1 << log_j;
+      if (j < kE) {
+#pragma unroll
+        for (int s = 0; s < kE; ++s) {
+          if ((s & j) == 0) {
+            const uint32_t lo = min(key[s], key[s | j]);
+            key[s | j] = max(key[s], key[s | j]);
+            key[s] = lo;
+          }
+        }
+      } else {
+        const int mask = j / kE;
+        const bool lower = (lane & mask) == 0;
+#pragma unroll
+        for (int s = 0; s < kE; ++s) {
+          const uint32_t other = __shfl_xor_sync(0xFFFFFFFFu, key[s], mask);
+          key[s] = lower ? min(key[s], other) : max(key[s], other);
+        }
+      }
+    }
+  }
+}
+
+template <int kE>
+__global__ void __launch_bounds__(kThreads)
+kth_warp_sort_kernel(const float* __restrict__ x, float* __restrict__ out, long long m, int w,
+                     int k) {
+  const long long row = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  // warps past the last row stay for the shuffles: they redo row 0, store nothing
+  const bool live = row < m;
+  const float* xr = x + (live ? row : 0) * w;
+  uint32_t key[kE];
+#pragma unroll
+  for (int s = 0; s < kE; ++s) {
+    const int j = lane + 32 * s;  // any order will do for a sort: coalesced
+    key[s] = j < w ? float_to_key(xr[j]) : 0xFFFFFFFFu;
+  }
+  warp_sort<kE>(key, lane);
+  const int pos = k - 1;
+  const uint32_t mine = select_register<kE>(key, pos % kE);
+  const uint32_t chosen = __shfl_sync(0xFFFFFFFFu, mine, pos / kE);
+  if (live && lane == 0) out[row] = key_to_float(chosen);
+}
+
 template <bool kBig>
 int launch_noise(const float* x, float* out, const NoiseLaunch& p, unsigned blocks,
                  size_t smem, cudaStream_t stream) {
   static size_t granted[kMaxDevices] = {};  // bytes granted to this instance, by device
-  if (smem > 48 * 1024) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const bool known = device >= 0 && device < kMaxDevices;
-    if (!known || smem > granted[device]) {
-      err = cudaFuncSetAttribute(os_cfar_2d_noise_kernel<kBig>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (known) granted[device] = smem;
-    }
-  }
+  const int err = grant_dynamic_shared(os_cfar_2d_noise_kernel<kBig>, smem, granted);
+  if (err != 0) return err;
   os_cfar_2d_noise_kernel<kBig><<<blocks, kThreads, smem, stream>>>(x, out, p);
   return static_cast<int>(cudaGetLastError());
 }
-
-constexpr bool is_power_of_two(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 // Whether the host's launch geometry fits the map, the window and what the
 // kernel assumes of it: a geometry that does not would give wrong noise
@@ -585,20 +677,51 @@ extern "C" int os_cfar_2d_noise(const void* x, void* out, int batch, int rows,
   return launch_noise<false>(xp, op, p, blocks, smem, s);
 }
 
-// x: float32 [m, w] contiguous; out: float32 [m]; 1 <= k <= w.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int kth_smallest(const void* x, void* out, long long m, int w, int k,
-                            void* stream) {
+namespace {
+
+template <int kW>
+int launch_network(const float* x, float* out, long long m, int k, cudaStream_t s) {
+  const unsigned blocks = static_cast<unsigned>((m + kThreads - 1) / kThreads);
+  kth_network_kernel<kW><<<blocks, kThreads, 0, s>>>(x, out, m, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x: float32 [m, w] contiguous; out: float32 [m]; 1 <= k <= w.  The width picks
+// the kernel: the sorting network up to 32 columns, the warp-wide sort up to
+// 256 and the search above.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue without a launch
+// for arguments outside those ranges.
+extern "C" int kth_smallest(const void* x, void* out, long long m, int w, int k, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(x);
   float* op = static_cast<float*>(out);
-  int group = 1;
-  while (group < 32 && group * kKeysPerLane < w) group <<= 1;
-  const unsigned blocks = static_cast<unsigned>((m * group + kThreads - 1) / kThreads);
-  if (group * kKeysPerLane >= w) {
-    kth_smallest_kernel<true><<<blocks, kThreads, 0, s>>>(xp, op, m, w, k, group);
+  if (m < 1 || w < 1 || k < 1 || k > w) return static_cast<int>(cudaErrorInvalidValue);
+  if (w <= 32) {
+    switch (w) {
+#define KTH_WIDTH(W) \
+  case W:            \
+    return launch_network<W>(xp, op, m, k, s);
+      KTH_WIDTH(1) KTH_WIDTH(2) KTH_WIDTH(3) KTH_WIDTH(4) KTH_WIDTH(5) KTH_WIDTH(6)
+      KTH_WIDTH(7) KTH_WIDTH(8) KTH_WIDTH(9) KTH_WIDTH(10) KTH_WIDTH(11) KTH_WIDTH(12)
+      KTH_WIDTH(13) KTH_WIDTH(14) KTH_WIDTH(15) KTH_WIDTH(16) KTH_WIDTH(17) KTH_WIDTH(18)
+      KTH_WIDTH(19) KTH_WIDTH(20) KTH_WIDTH(21) KTH_WIDTH(22) KTH_WIDTH(23) KTH_WIDTH(24)
+      KTH_WIDTH(25) KTH_WIDTH(26) KTH_WIDTH(27) KTH_WIDTH(28) KTH_WIDTH(29) KTH_WIDTH(30)
+      KTH_WIDTH(31) KTH_WIDTH(32)
+#undef KTH_WIDTH
+    }
+  }
+  // a warp a row from here on
+  const unsigned blocks = static_cast<unsigned>((m * 32 + kThreads - 1) / kThreads);
+  if (w <= 64) {
+    kth_warp_sort_kernel<2><<<blocks, kThreads, 0, s>>>(xp, op, m, w, k);
+  } else if (w <= 128) {
+    kth_warp_sort_kernel<4><<<blocks, kThreads, 0, s>>>(xp, op, m, w, k);
+  } else if (w <= 256) {
+    kth_warp_sort_kernel<8><<<blocks, kThreads, 0, s>>>(xp, op, m, w, k);
   } else {
-    kth_smallest_kernel<false><<<blocks, kThreads, 0, s>>>(xp, op, m, w, k, group);
+    kth_search_kernel<<<blocks, kThreads, 0, s>>>(xp, op, m, w, k);
   }
   return static_cast<int>(cudaGetLastError());
 }

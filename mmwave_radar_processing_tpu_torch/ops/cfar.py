@@ -31,13 +31,18 @@ for ``alpha > 0``, so a cell is detected when at least ``k`` of its training
 cells, scaled by ``alpha``, lie strictly below it (:func:`os_2d_detect`, the
 same device dispatch with its own kernel, and :func:`os_1d_detect`, plain
 tensor code).  Cells whose window falls off the map are False.
+:func:`os_2d_detect_compact` gives the first detections' indices instead of
+the mask: on a GPU the same kernel writes them from its epilogue.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from mmwave_radar_processing_tpu_torch.ops import masked
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import rank_select
 
@@ -74,12 +79,19 @@ def _check_alpha(alpha: float) -> None:
 
 
 def _geometry(num_train, num_guard, rho: float):
-    """Validated ``(num_train, num_guard, training mask, k)``."""
+    """Validated ``(num_train, num_guard, training mask, k)``; the mask is shared, read only."""
     tr, td = (int(v) for v in num_train)
     gr, gd = (int(v) for v in num_guard)
+    return _window_geometry(tr, td, gr, gd, float(rho))
+
+
+@functools.lru_cache(maxsize=64)
+def _window_geometry(tr: int, td: int, gr: int, gd: int, rho: float):
+    """:func:`_geometry` on plain numbers, cached: a detector asks for the same one every frame."""
     if min(tr, td, gr, gd) < 0:
-        raise ValueError(f"negative window size: train {num_train}, guard {num_guard}")
+        raise ValueError(f"negative window size: train {(tr, td)}, guard {(gr, gd)}")
     mask = train_mask_2d((tr, td), (gr, gd))
+    mask.setflags(write=False)
     return (tr, td), (gr, gd), mask, os_rank(rho, int(mask.sum()))
 
 
@@ -108,6 +120,12 @@ def os_2d_detect_reference(
     return out
 
 
+def _has_interior(x: torch.Tensor, train, guard) -> bool:
+    """Whether a ``[..., R, D]`` map holds a cell whose whole window lies on the map."""
+    return (x.shape[-2] > 2 * (train[0] + guard[0])
+            and x.shape[-1] > 2 * (train[1] + guard[1]))
+
+
 def os_2d_detect(
     x: torch.Tensor, *, num_train, num_guard, rho: float, alpha: float,
 ) -> torch.Tensor:
@@ -124,10 +142,48 @@ def os_2d_detect(
             x, num_train=train, num_guard=guard, rho=rho, alpha=alpha)
     if x.device.type != "cuda":
         raise ValueError(f"no OS-CFAR kernel for device {x.device}")
+    if not _has_interior(x, train, guard):
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     flat = x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
     det = kernel.os_cfar_2d_detect(flat, num_train=train, num_guard=guard,
                                    k=k, alpha=alpha)
     return det.reshape(x.shape)
+
+
+def os_2d_detect_compact(
+    x: torch.Tensor, capacity: int, *, num_train, num_guard, rho: float, alpha: float,
+):
+    """The first ``capacity`` OS-CFAR 2D detections of ``float32 [..., R, D]``, row-major.
+
+    Returns ``(rows, cols, valid, count)`` as
+    ``masked.mask_to_indices_2d(os_2d_detect(x, ...), capacity)`` does: int64
+    ``[..., capacity]`` indices (padding 0), bool ``[..., capacity]``, int32
+    ``[...]`` clamped to ``capacity``.  On a CPU tensor it is exactly that,
+    over the plain mask (the plain version of the compacting kernel).  On a
+    CUDA tensor the shape decides, and it is stated here, not discovered by a
+    failure: where a whole frame's region fits one block's shared memory
+    (``kernels.os_cfar.frame_fits_one_block``; a flagship frame does) the
+    kernel writes the indices from its epilogue and no mask reaches device
+    memory; a larger frame takes the mask kernel and then
+    :func:`~.masked.mask_to_indices_2d`.
+    """
+    _check_signal(x, 2)
+    _check_alpha(alpha)
+    train, guard, _, k = _geometry(num_train, num_guard, rho)
+    rows, cols = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
+    if not _has_interior(x, train, guard):  # nothing can be detected
+        zeros = torch.zeros(lead + (capacity,), dtype=torch.int64, device=x.device)
+        return (zeros, zeros.clone(), torch.zeros_like(zeros, dtype=torch.bool),
+                torch.zeros(lead, dtype=torch.int32, device=x.device))
+    if x.device.type == "cuda" and kernel.frame_fits_one_block(rows, cols, train, guard):
+        flat = x.reshape((-1, rows, cols)).contiguous()
+        out = kernel.os_cfar_2d_detect_compact(flat, capacity, num_train=train,
+                                               num_guard=guard, k=k, alpha=alpha)
+        return tuple(t.reshape(lead + tuple(t.shape[1:])) for t in out)
+    det = os_2d_detect(x, num_train=train, num_guard=guard, rho=rho, alpha=alpha)
+    edges = (train[0] + guard[0], train[1] + guard[1])  # False by construction
+    return masked.mask_to_indices_2d(det, capacity, interior=edges)
 
 
 # --------------------------------------------------------------------------- #

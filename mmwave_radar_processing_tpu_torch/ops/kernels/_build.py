@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C entry point, so it compiles in seconds
 without PyTorch's headers:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I <generated headers> -o <name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``build/torch_kernels/`` at the repository root, named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  The compiler's output (``-Xptxas -v``: registers,
-shared memory, spills) is kept beside it as ``<name>-<hash>.log``.
+by a hash of the source, the headers it may include (``csrc/*.cuh`` and the
+generated ones) and the flags, so an edited source rebuilds and an unchanged
+one is reused.  The compiler's output (``-Xptxas -v``: registers, shared
+memory, spills) is kept beside it as ``<name>-<hash>.log``.  A header that is
+generated (:data:`GENERATED_HEADERS`: the sorting networks of the
+k-th-smallest kernel) is written beside the library before the compiler runs.
 """
 
 from __future__ import annotations
@@ -22,12 +25,19 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from mmwave_radar_processing_tpu_torch.ops.kernels import sorting_network
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: source name -> {header file name: function that returns its text}
+GENERATED_HEADERS = {
+    "os_rank_select": {sorting_network.HEADER_NAME: sorting_network.header},
+}
 
 
 def find_nvcc() -> str:
@@ -46,9 +56,18 @@ def find_nvcc() -> str:
         "the CUDA toolkit (set CUDA_HOME to its root)")
 
 
+def generated_headers(name: str) -> dict:
+    """``{file name: text}`` of the headers generated for ``csrc/<name>.cu``."""
+    return {file: make() for file, make in GENERATED_HEADERS.get(name, {}).items()}
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed on its source and the flags."""
+    """Where ``csrc/<name>.cu`` builds to: keyed on its source, its headers and the flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    for file, text in sorted(generated_headers(name).items()):
+        digest.update(file.encode() + text.encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -62,7 +81,17 @@ def build(name: str) -> Path:
     # build under a private name and rename: concurrent builders never see a
     # half-written library
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    include = []
+    headers = generated_headers(name)
+    if headers:
+        # keyed like the library: concurrent builds write the same text
+        include_dir = lib.with_suffix(".include")
+        include_dir.mkdir(exist_ok=True)
+        for file, text in headers.items():
+            (include_dir / file).write_text(text)
+        include = ["-I", str(include_dir)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp),
+           str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

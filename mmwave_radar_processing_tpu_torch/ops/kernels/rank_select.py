@@ -1,10 +1,14 @@
 """k-th smallest along the last axis: the launch of the hand-written CUDA kernel and its count.
 
 Replaces the TPU kernel ``ops/pallas/rank_select.py::kth_smallest`` of the JAX
-package.  The kernel source is ``csrc/os_rank_select.cu`` (a bitwise rank
-search; 1 to 32 lanes a row, each keeping up to 8 of the row's keys in
-registers); it is compiled by ``nvcc`` at first use (:mod:`._build`).  The plain PyTorch version
-and the dispatch on the device live in :mod:`..cfar`.
+package.  The kernel source is ``csrc/os_rank_select.cu``: rows of up to 32
+columns are sorted by one thread in registers with a sorting network
+(:mod:`.sorting_network`) and element ``k - 1`` is taken; rows of up to 256
+columns are sorted by a warp (2 to 8 keys a lane, a bitonic network by
+shuffle); wider rows take a bitwise rank search.  It is compiled by ``nvcc``
+at first use (:mod:`._build`).
+The plain PyTorch version and the dispatch on the device live in
+:mod:`..cfar`.
 
 ``kth_smallest.launches`` counts kernel launches.
 """
@@ -21,7 +25,6 @@ from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 #: the grid's x dimension holds at most 2^31 - 1 blocks of 256 threads
 _MAX_THREADS = (2**31 - 1) * 256
 
-
 @functools.cache
 def _kernel():
     """The C entry point, built at first use, with its argument types declared."""
@@ -35,8 +38,9 @@ def _kernel():
 def kth_smallest(train: torch.Tensor, k: int) -> torch.Tensor:
     """Launch the kernel: CUDA ``float32 [M, W] -> float32 [M]``, ``k`` 1-based.
 
-    Equal under ``==`` to ``torch.sort(train, -1).values[:, k - 1]``.  Raises
-    on anything the kernel does not take, a tensor off the GPU included.
+    Equal under ``==`` to ``torch.sort(train, -1).values[:, k - 1]`` at every
+    width.  Raises on anything the kernel does not take, such as a tensor off
+    the GPU.
     """
     if train.dtype != torch.float32:
         raise TypeError(f"expected float32 rows, got {train.dtype}")
@@ -60,7 +64,7 @@ def kth_smallest(train: torch.Tensor, k: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(train.device).cuda_stream
         err = launch(train.data_ptr(), out.data_ptr(), m, w, int(k), stream)
     if err != 0:
-        raise RuntimeError(f"kth_smallest kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"kth_smallest kernel launch failed at width {w}: CUDA error {err}")
     kth_smallest.launches += 1
     return out
 

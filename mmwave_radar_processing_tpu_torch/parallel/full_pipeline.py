@@ -59,7 +59,8 @@ def build_full_pipeline(
     """Build the combined pipeline on ``device``; the signature mirrors the JAX package's.
 
     ``aoa_precision`` is ``"f32"`` only (the port's one precision; the JAX
-    default ``"fast"`` and ``"exact"`` raise).  ``velocity_kwargs`` go to
+    default ``"fast"`` and ``"exact"`` raise).  An empty antenna subset gives
+    zero angles on its axis.  ``velocity_kwargs`` go to
     :func:`build_velocity_pipeline`.
     """
     point_cloud = build_point_cloud_pipeline(

@@ -6,8 +6,9 @@ main path of the system.  Per frame:
 1. windowed range DFT of the AoA antenna union (plus channel 0), with the
    virtual-array reformat folded into the channel selection -> ``R``;
 2. Doppler DFT of channel 0 and its magnitude -> the CFAR map;
-3. counting OS-CFAR 2D detection (the hand-written CUDA kernel on a GPU);
-4. compaction of the first ``max_dets`` detections, row-major;
+3. counting OS-CFAR 2D detection and
+4. compaction of the first ``max_dets`` detections, row-major (on a GPU one
+   hand-written CUDA kernel does both: ``ops/cfar.os_2d_detect_compact``);
 5. the detected cells' values on the union, gathered from ``R``;
 6. azimuth and elevation from a zero-padded angle DFT and its argmax;
 7. conversion to cartesian FLU points; invalid rows are zero.
@@ -27,8 +28,7 @@ from torch import nn
 
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import dft
-from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect
-from mmwave_radar_processing_tpu_torch.ops.masked import mask_to_indices_2d
+from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect_compact
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     spherical_to_cartesian_flu,
@@ -68,8 +68,11 @@ def set_full_fp32() -> None:
 class PointCloudPipeline(nn.Module):
     """``(raw_re, raw_im) float32 [B, rx, ns, nc] -> PointCloudBatch``.
 
-    Build it with :func:`build_point_cloud_pipeline`, which checks the
-    options and places it on a device.
+    With ``reformat_input=False`` the planes are already reformatted virtual
+    cubes ``[B, virtual channels, ns, loops]``.  An empty antenna subset
+    gives zero angles on that axis.  Build it with
+    :func:`build_point_cloud_pipeline`, which checks the options and places
+    it on a device.
     """
 
     def __init__(
@@ -83,11 +86,13 @@ class PointCloudPipeline(nn.Module):
         num_angle_bins: int,
         shift_az_resp: bool,
         shift_el_resp: bool,
+        reformat_input: bool = True,
     ):
         super().__init__()
         ns, loops = cfg.num_adc_samples, cfg.frame.loops
         self.num_rx, self.cpl = cfg.num_rx_antennas, cfg.chirp_cfgs_per_loop
-        self.frame_shape = (ns, loops * self.cpl)
+        self.reformat_input = reformat_input
+        self.frame_shape = (ns, loops * self.cpl) if reformat_input else (ns, loops)
         self.cfar_params = dict(cfar_params)
         self.max_dets = max_dets
         # affine bin grids (exact: the reference grids are arange-generated)
@@ -98,9 +103,7 @@ class PointCloudPipeline(nn.Module):
         # whether or not the AoA union contains it
         az_idx = np.asarray(az_antenna_idxs, int)
         el_idx = np.asarray(el_antenna_idxs, int)
-        if not az_idx.size or not el_idx.size:
-            raise ValueError("both antenna subsets must be non-empty (empty "
-                             "subsets, which give zero angles, are not ported)")
+        self.has_az, self.has_el = bool(az_idx.size), bool(el_idx.size)
         self.union_idx, az_pos, el_pos, _ = dft.aoa_union_layout(az_idx, el_idx)
         if 0 in self.union_idx:
             chans = self.union_idx
@@ -109,21 +112,17 @@ class PointCloudPipeline(nn.Module):
         else:
             chans = np.concatenate([[0], self.union_idx])
             self.ch0_pos, self.aoa_start = 0, 1
-
-        # CFAR edge rows/cols are False by construction: compact the interior
-        edge_r = cfar_params["num_train"][0] + cfar_params["num_guard"][0]
-        edge_d = cfar_params["num_train"][1] + cfar_params["num_guard"][1]
-        self.interior = ((edge_r, edge_d)
-                         if ns - 2 * edge_r > 0 and loops - 2 * edge_d > 0
-                         else None)
+        # planes the input must hold: receivers of a raw cube, virtual channels
+        # of a reformatted one
+        self.min_planes = self.num_rx if reformat_input else int(chans.max()) + 1
 
         rng_factors, dop_factors = dft.range_doppler_factors(ns, loops)
         self.register_buffer("rng_dft", dft.to_matrix(rng_factors))
         self.register_buffer("dop_dft", dft.to_matrix(dop_factors))
         self.register_buffer("az_dft", dft.to_matrix(dft.aoa_factors(
-            len(az_idx), num_angle_bins, shift_az_resp)))
+            len(az_idx) or 1, num_angle_bins, shift_az_resp)))
         self.register_buffer("el_dft", dft.to_matrix(dft.aoa_factors(
-            len(el_idx), num_angle_bins, shift_el_resp)))
+            len(el_idx) or 1, num_angle_bins, shift_el_resp)))
         self.register_buffer("angle_bins", torch.from_numpy(
             grids.angle_bins(num_angle_bins).astype(np.float32)))
         self.register_buffer("chans", torch.from_numpy(chans.astype(np.int64)))
@@ -133,9 +132,9 @@ class PointCloudPipeline(nn.Module):
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor) -> PointCloudBatch:
         if raw_re.shape != raw_im.shape or raw_re.dim() != 4 \
                 or tuple(raw_re.shape[-2:]) != self.frame_shape \
-                or raw_re.shape[1] < self.num_rx:
+                or raw_re.shape[1] < self.min_planes:
             raise ValueError(
-                f"expected raw planes [B, >={self.num_rx}, {self.frame_shape[0]}, "
+                f"expected planes [B, >={self.min_planes}, {self.frame_shape[0]}, "
                 f"{self.frame_shape[1]}], got {tuple(raw_re.shape)} and "
                 f"{tuple(raw_im.shape)}")
         for plane in (raw_re, raw_im):
@@ -146,16 +145,22 @@ class PointCloudPipeline(nn.Module):
                                  f"{self.rng_dft.device}")
 
         raw = torch.complex(raw_re, raw_im)
-        R = dft.range_dft_channels(raw, self.chans, self.rng_dft,
-                                   num_rx=self.num_rx, cfgs_per_loop=self.cpl)
+        if self.reformat_input:
+            R = dft.range_dft_channels(raw, self.chans, self.rng_dft,
+                                       num_rx=self.num_rx, cfgs_per_loop=self.cpl)
+        else:
+            R = torch.matmul(self.rng_dft.transpose(0, 1), raw[:, self.chans])
         rd0 = torch.matmul(R[:, self.ch0_pos], self.dop_dft)  # [B, W, V]
-        det = os_2d_detect(dft.cabs(rd0), **self.cfar_params)
-        r_i, v_i, valid, count = mask_to_indices_2d(
-            det, self.max_dets, interior=self.interior)
+        r_i, v_i, valid, count = os_2d_detect_compact(
+            dft.cabs(rd0), self.max_dets, **self.cfar_params)
 
-        vals = dft.rd_values(R[:, self.aoa_start:], self.dop_dft, r_i, v_i)
-        az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.angle_bins)
-        el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.angle_bins)
+        az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
+        if self.has_az or self.has_el:
+            vals = dft.rd_values(R[:, self.aoa_start:], self.dop_dft, r_i, v_i)
+        if self.has_az:
+            az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.angle_bins)
+        if self.has_el:
+            el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.angle_bins)
         ranges = r_i.to(torch.float32) * self.range_res
         vels = self.vel0 + v_i.to(torch.float32) * self.vel_res
         pts = spherical_to_cartesian_flu(ranges, az, el, vels)
@@ -184,18 +189,18 @@ def build_point_cloud_pipeline(
     The signature mirrors the JAX package's.  Only what the port implements
     is accepted; the rest raises ``ValueError`` rather than running another
     path: ``backend`` is ``"mxu"`` (the DFT-as-matmul formulation),
-    ``dataflow`` is ``"union"``, ``reformat_input`` is True (raw TDM cubes),
-    and ``aoa_precision`` is ``"f32"`` (the port has no reduced-precision
-    mode; the result is held to the JAX ``"f32"`` pipeline).  Calls
-    :func:`set_full_fp32`.
+    ``dataflow`` is ``"union"`` and ``aoa_precision`` is ``"f32"`` (the port
+    has no reduced-precision mode; the result is held to the JAX ``"f32"``
+    pipeline).  ``reformat_input=False`` takes already reformatted virtual
+    cubes ``[B, virtual channels, ns, loops]``; an empty antenna subset gives
+    zero angles on its axis.  Calls :func:`set_full_fp32`.
     """
     if backend != "mxu":
         raise ValueError(f"backend={backend!r} is not ported (only 'mxu')")
     if dataflow != "union":
         raise ValueError(f"dataflow={dataflow!r} is not ported (only 'union')")
-    if reformat_input is not True:
-        raise ValueError("reformat_input=False is not ported: the pipeline "
-                         "takes raw TDM cubes")
+    if not isinstance(reformat_input, bool):
+        raise ValueError(f"reformat_input={reformat_input!r}: expected a bool")
     if aoa_precision != "f32":
         raise ValueError(f"aoa_precision={aoa_precision!r} is not ported: the "
                          "port runs full float32 only ('f32')")
@@ -210,6 +215,7 @@ def build_point_cloud_pipeline(
         num_angle_bins=num_angle_bins,
         shift_az_resp=shift_az_resp,
         shift_el_resp=shift_el_resp,
+        reformat_input=reformat_input,
     )
     return pipeline.to(device)
 

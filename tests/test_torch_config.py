@@ -1,7 +1,7 @@
 """The port's own copies of the host layers equal the JAX package's, bit for bit.
 
-``config`` (parser and grids), ``data.simulator`` and ``utils.verify.make_inputs``
-are numpy-only copies, so that the port imports nothing of the JAX package;
+``config`` (parser and grids), ``data.simulator`` and ``utils.verify``
+(``make_inputs``, ``compare_outputs`` and its gates) are numpy-only copies, so that the port imports nothing of the JAX package;
 here both are run on the same files and seeds and must give the same bits.
 """
 
@@ -107,3 +107,64 @@ def test_make_inputs_bit_equal(seed):
                     jverify.make_inputs(theirs, 3, seed=seed)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def _point_cloud_leaves(seed, frames=6, capacity=16, flips=0, empty_frame=False):
+    """Seeded ``pointcloud_f32`` leaves; ``flips`` detections dropped from some frames."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0 if empty_frame else 3, capacity + 1, frames).astype(np.int32)
+    if empty_frame:
+        count[0] = 0
+    valid = np.arange(capacity)[None, :] < count[:, None]
+    points = rng.normal(0, 2, (frames, capacity, 4)).astype(np.float32) * valid[..., None]
+    other = {"points": points.copy(), "valid": valid.copy(), "count": count.copy()}
+    for f in range(min(flips, frames)):
+        if count[f] > 1:  # drop the first detection: every later slot shifts
+            n = count[f] - 1
+            other["points"][f, :n] = points[f, 1 : n + 1]
+            other["points"][f, n:] = 0
+            other["valid"][f, n] = False
+            other["count"][f] = n
+    other["points"] += rng.normal(0, 1e-4, other["points"].shape).astype(np.float32) \
+        * other["valid"][..., None]
+    name = lambda d: {f"pointcloud_f32/{k}": v for k, v in d.items()}  # noqa: E731
+    return name(dict(points=points, valid=valid, count=count)), name(other)
+
+
+@pytest.mark.parametrize("case", [dict(seed=0), dict(seed=1, flips=2), dict(seed=2, flips=6),
+                                  dict(seed=3, empty_frame=True), dict(seed=4, frames=1)],
+                         ids=["agree", "two_flips", "every_frame_flips", "empty_frame",
+                              "one_frame"])
+def test_compare_outputs_equals_the_jax_packages(case):
+    """Same report, key for key, gates included; exact equality (the copy is numpy only)."""
+    oracle, device = _point_cloud_leaves(**case)
+    extra = np.random.default_rng(9)
+    for name, leaf in (("velocity/vx", extra.normal(0, 1, 8).astype(np.float32)),
+                       ("velocity/bins", extra.integers(0, 60, (8, 5)).astype(np.int32)),
+                       ("capon/out", extra.normal(50, 9, (2, 5, 7)).astype(np.float32))):
+        oracle[name] = leaf
+        device[name] = leaf + (leaf.dtype == np.float32) * np.float32(0.015)
+    device["velocity/bins"] = device["velocity/bins"].copy()
+    device["velocity/bins"][0, 0] += 1
+    del device["capon/out"]  # a leaf missing on one side
+    ours = tverify.compare_outputs(oracle, device)
+    theirs = jverify.compare_outputs(oracle, device)
+    assert ours == theirs
+    assert {leaf["leaf"] for leaf in ours["leaves"]} == set(oracle)
+    points = next(l for l in ours["leaves"] if l["leaf"] == "pointcloud_f32/points")
+    assert points["gate"] == 0.95 == jverify.METRIC_POINTS_IOU["pointcloud_f32"]
+
+
+def test_compare_outputs_gates_are_the_jax_packages():
+    for name in ("MIN_DISCRETE_AGREEMENT", "FLOAT_ATOL", "FLOAT_RTOL", "MIN_POINTS_IOU",
+                 "MIN_COUNT_NEAR", "METRIC_POINTS_IOU", "METRIC_COUNT_NEAR"):
+        assert getattr(tverify, name) == getattr(jverify, name), name
+
+
+def test_point_set_report_equals_the_jax_packages():
+    oracle, device = _point_cloud_leaves(seed=5, flips=3)
+    args = (oracle["pointcloud_f32/points"], oracle["pointcloud_f32/valid"],
+            device["pointcloud_f32/points"], device["pointcloud_f32/valid"])
+    ours = tverify._point_set_report(*args, tol=1e-2)
+    assert ours == jverify._point_set_report(*args, tol=1e-2)
+    assert 0.5 < ours["set_iou_mean"] < 1.0  # the flips are seen, the rest matches

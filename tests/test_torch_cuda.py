@@ -22,7 +22,7 @@ from mmwave_radar_processing_tpu_torch import (
     load_cfg,
     make_inputs,
 )
-from mmwave_radar_processing_tpu_torch.ops import beamform, cfar, doppler_az
+from mmwave_radar_processing_tpu_torch.ops import beamform, cfar, doppler_az, masked
 from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as dkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
@@ -63,7 +63,8 @@ def test_kernel_equals_plain_version(cuda, params, shape):
     before = kernel.os_cfar_2d_detect.launches
     got = cfar.os_2d_detect(x, **params)
     torch.cuda.synchronize()
-    assert kernel.os_cfar_2d_detect.launches == before + 1
+    # a map smaller than one window has no interior cell: answered without a launch
+    assert kernel.os_cfar_2d_detect.launches == before + (shape != (2, 10, 12))
     assert torch.equal(got, cfar.os_2d_detect_reference(x, **params))
 
 
@@ -555,3 +556,153 @@ def test_detector_api_on_cuda_matches_cpu_and_launches_the_kernels(cuda):
         for frame in virt:
             assert np.array_equal(gpu.process(frame.to(cuda)), cpu.process(frame))
         assert rank_select.kth_smallest.launches >= len(virt)
+
+
+# --------------------------------------------------------------------------- #
+# the redesigned detection kernel (tiles, strips, run lengths) and its compacting entry
+# --------------------------------------------------------------------------- #
+DETECT_WINDOWS = {
+    "flagship": FLAGSHIP, "second": SECOND, "zero_guard": ZERO_GUARD, "narrow": NARROW,
+    "one_column": ONE_COLUMN,
+    "no_side_columns": dict(num_train=(2, 0), num_guard=(1, 2), rho=0.5, alpha=1.5),
+    "no_rows_above": dict(num_train=(0, 3), num_guard=(2, 1), rho=0.5, alpha=1.5),
+    "runs_of_31": dict(num_train=(1, 12), num_guard=(1, 3), rho=0.5, alpha=2.0),
+    "runs_of_33": dict(num_train=(1, 13), num_guard=(1, 3), rho=0.5, alpha=2.0),
+    "side_runs_of_32": dict(num_train=(1, 32), num_guard=(0, 1), rho=0.5, alpha=2.0),
+}
+
+
+@pytest.mark.parametrize("name", list(DETECT_WINDOWS))
+@pytest.mark.parametrize("shape", [(1, 63, 70), (7, 63, 70), (200, 63, 70), (1, 66, 77),
+                                   (3, 40, 81), (2, 256, 192)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_detection_kernel_equals_plain_version_at_any_window_and_tiling(cuda, name, shape):
+    params = DETECT_WINDOWS[name]
+    x = _quantized_maps(shape, seed=shape[1], device=cuda)
+    x[:, ::9, ::7] = float("inf")
+    want = cfar.os_2d_detect_reference(x, **params)
+    got = cfar.os_2d_detect(x, **params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool(want.any())
+    # the two OS-CFAR kernels check each other
+    assert torch.equal(x > cfar.os_2d(x, **params)[0], got)
+
+
+@pytest.mark.parametrize("name", ["flagship", "second", "narrow", "runs_of_33", "no_side_columns"])
+@pytest.mark.parametrize("shape", [(1, 63, 70), (65, 63, 70), (9, 128, 128), (3, 17, 15),
+                                   (3, 256, 192)], ids=lambda s: "x".join(map(str, s)))
+def test_compacting_entry_equals_mask_to_indices_2d(cuda, name, shape):
+    """Frames with no detection, exactly ``capacity`` and more; a frame too large for a block."""
+    params = DETECT_WINDOWS[name]
+    x = _quantized_maps(shape, seed=shape[2], device=cuda)
+    if shape[0] > 1:
+        x[0] = 1.0  # no detection
+    mask = cfar.os_2d_detect_reference(x, **params)
+    counts = mask.sum(dim=(1, 2))
+    (tr, td), (gr, gd) = params["num_train"], params["num_guard"]
+    interior = shape[1] > 2 * (tr + gr) and shape[2] > 2 * (td + gd)
+    fits = kernel.frame_fits_one_block(shape[1], shape[2], (tr, td), (gr, gd))
+    assert fits == (interior and shape[1] < 256)
+    for capacity in sorted({1, 128, max(1, int(counts.median())), int(counts.max()) + 2}):
+        before = kernel.os_cfar_2d_detect.launches
+        got = cfar.os_2d_detect_compact(x, capacity, **params)
+        torch.cuda.synchronize()
+        assert kernel.os_cfar_2d_detect.launches == before + interior
+        want = masked.mask_to_indices_2d(mask, capacity)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_compacting_entry_keeps_leading_dimensions_and_empty_batches(cuda):
+    x = _quantized_maps((2, 3, 63, 70), seed=4, device=cuda)
+    got = cfar.os_2d_detect_compact(x, 16, **FLAGSHIP)
+    want = masked.mask_to_indices_2d(cfar.os_2d_detect_reference(x, **FLAGSHIP), 16)
+    assert got[0].shape == (2, 3, 16) and got[3].shape == (2, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    empty = kernel.os_cfar_2d_detect_compact(torch.empty((0, 63, 70), device=cuda), 8,
+                                             num_train=(5, 5), num_guard=(3, 2), k=154, alpha=4.0)
+    assert empty[0].shape == (0, 8) and empty[3].shape == (0,)
+    small = cfar.os_2d_detect_compact(x[..., :10, :12], 8, **FLAGSHIP)  # no interior cell
+    assert not bool(small[2].any()) and not bool(small[3].any())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tile_d", 54), ("tile_d", 52), ("tiles_r", 2), ("tiles_d", 2), ("stride", 72),
+    ("stride", 90), ("row_split", 3), ("row_split", 64), ("tile_r", 40),
+])
+def test_detect_entry_point_refuses_an_inconsistent_geometry(cuda, field, value):
+    """A geometry that does not fit the map would give a wrong mask with no CUDA error."""
+    x = _quantized_maps((8, 63, 70), seed=0, device=cuda)
+    out = torch.empty((8, 63, 70), dtype=torch.bool, device=cuda)
+    whole = kernel.detect_launch_geometry(63, 70, (5, 5), (3, 2), 1024)
+    assert (whole.tile_r, whole.tile_d, whole.stride) == (47, 56, 88)
+    geo = whole._replace(**{field: value})
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    err = kernel._kernel()(x.data_ptr(), out.data_ptr(), 8, 63, 70, 5, 5, 3, 2, 154, 4.0,
+                           geo.tile_r, geo.tile_d, geo.tiles_r, geo.tiles_d, geo.stride,
+                           geo.row_split, stream)
+    assert err == 1  # cudaErrorInvalidValue, and nothing launched
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "strided", "rank", "k_low", "small",
+                                  "capacity", "too_large_for_a_block"])
+def test_detection_entries_reject_what_they_do_not_take(cuda, case):
+    x = _quantized_maps((2, 63, 70), seed=0, device=cuda)
+    kw = dict(num_train=(5, 5), num_guard=(3, 2), k=154, alpha=4.0)
+    capacity = 16
+    if case == "cpu":
+        x = x.cpu()
+    elif case == "dtype":
+        x = x.double()
+    elif case == "strided":
+        x = x[:, :, ::2]
+    elif case == "rank":
+        x = x[0]
+    elif case == "k_low":
+        kw["k"] = 0
+    elif case == "small":
+        x = x[:, :10, :12].contiguous()
+    elif case == "capacity":
+        capacity = 0
+    else:
+        x = _quantized_maps((1, 256, 192), seed=0, device=cuda)
+    with pytest.raises((ValueError, TypeError)):
+        kernel.os_cfar_2d_detect_compact(x, capacity, **kw)
+    if case not in ("capacity", "too_large_for_a_block"):
+        with pytest.raises((ValueError, TypeError)):
+            kernel.os_cfar_2d_detect(x, **kw)
+
+
+# --------------------------------------------------------------------------- #
+# the k-th-smallest kernel: a kernel for each range of widths
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 7, 8, 9, 12, 15, 16, 17, 20, 23, 24, 25, 28, 31,
+                               32, 33, 40, 64, 65, 100, 128, 129, 220, 256, 257, 300])
+@pytest.mark.parametrize("m", [1, 259, 4097])
+def test_kth_smallest_equals_plain_version_at_every_width(cuda, w, m):
+    """Every width's instance, rows not a multiple of the block; ties, ``+inf``, both zeros."""
+    x = _quantized_maps((m, w), seed=w, device=cuda) - 0.5
+    x[0, ::2] = float("inf")
+    if m > 2:
+        x[1] = x[1, 0].clone()
+        x[2, ::3], x[2, 1::3] = -0.0, 0.0
+    for k in sorted({1, max(1, (7 * w) // 10), w}):
+        want = cfar.kth_smallest_reference(x, k)
+        got = rank_select.kth_smallest(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        # one of the inputs, bit for bit: a zero keeps its sign bit's row
+        assert bool((got.view(torch.int32)[:, None] == x.view(torch.int32)).any(1).all())
+
+
+def test_kth_smallest_takes_rows_off_a_16_byte_boundary(cuda):
+    """A view one float into its storage: no width's kernel assumes an alignment."""
+    for w in (24, 220, 300):
+        base = _quantized_maps((1, w * 300 + 1), seed=3, device=cuda)[0]
+        x = base[1:].view(300, w)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        assert torch.equal(rank_select.kth_smallest(x, w // 2),
+                           cfar.kth_smallest_reference(x, w // 2))

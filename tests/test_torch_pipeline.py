@@ -143,8 +143,8 @@ def test_load_reference_constants_rejects_mismatches(flagship_config, fault):
                                     dict(dataflow="rawd"),
                                     dict(aoa_precision="fast"),
                                     dict(aoa_precision="exact"),
-                                    dict(reformat_input=False),
-                                    dict(el_antenna_idxs=())],
+                                    dict(reformat_input=None),
+                                    dict(dataflow="raw", reformat_input=False)],
                          ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_options_left_out_of_the_port_raise(flagship_config, option):
     with pytest.raises(ValueError):

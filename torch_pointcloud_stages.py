@@ -14,7 +14,9 @@ prints one JSON line per batch size:
   synchronize;
 - ``stage_ms_median``: CUDA events between the stages of ``forward``,
   replayed here one by one (median of ``--reps``); the replay is checked to
-  give ``forward``'s output exactly;
+  give ``forward``'s output exactly; ``cfar_compact`` is the one kernel that
+  detects and compacts (``chip_smoke.py`` times it beside the mask entry
+  followed by ``mask_to_indices_2d``, the two steps it replaced);
 
 and last, at the largest batch not above 1024, the device busy share over 10
 forwards under ``torch.profiler`` (device kernel time / host wall time) with
@@ -35,8 +37,7 @@ from mmwave_radar_processing_tpu_torch import (
     PointCloudBatch, build_point_cloud_pipeline, load_cfg,
 )
 from mmwave_radar_processing_tpu_torch.ops import dft
-from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect
-from mmwave_radar_processing_tpu_torch.ops.masked import mask_to_indices_2d
+from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect_compact
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     spherical_to_cartesian_flu,
 )
@@ -71,10 +72,8 @@ def staged_forward(p, raw_re, raw_im):
     mark("doppler_dft")
     mag = dft.cabs(rd0)
     mark("magnitude")
-    det = os_2d_detect(mag, **p.cfar_params)
-    mark("cfar_kernel")
-    r_i, v_i, valid, count = mask_to_indices_2d(det, p.max_dets, interior=p.interior)
-    mark("compaction")
+    r_i, v_i, valid, count = os_2d_detect_compact(mag, p.max_dets, **p.cfar_params)
+    mark("cfar_compact")
     vals = dft.rd_values(R[:, p.aoa_start:], p.dop_dft, r_i, v_i)
     mark("rd_values")
     az = dft.aoa_peak_angles(vals, p.az_pos, p.az_dft, p.angle_bins)
