@@ -44,8 +44,14 @@ failure (exit code != 0):
    versions on the same CUDA tensors (rtol ``BEAMFORM_RTOL``; Bartlett also
    atol 1e-4 times the map's maximum, and also against the snapshot form
    ``mean_k |a^H x_k|^2``) at [B, 4, 63, 70] with 64 angles for B in
-   {1, 7, 1024}, at A = 12 (the processors' aperture), A = 7 with the
-   2048-angle azimuth-elevation grid, A = 16 and an odd small shape;
+   {1, 7, 1024}, at A = 12 (the processors' aperture), A = 7 and A = 12 with
+   the 2048-angle azimuth-elevation grid, A = 16, an odd small shape, and the
+   shapes that reach the kernel's tile geometry (tiles that straddle frames,
+   W = 1 with N not a multiple of the tile, odd K and an x off 16 bytes,
+   which take 8-byte copies in place of bulk ones, a config-sized cube of
+   256 range bins and 192 chirps, A = 1, rows longer than a stage); then the
+   kernel's own tile geometry and copies (its host code) equal the model that
+   the CPU tests check, at every (W, K) of a config under ``configs/``;
 9. beamforming slice: the same 32 frames through ``build_capon_pipeline``
    (``capon`` and ``bartlett``) on the GPU and on the CPU port, then both
    processors on 3 frames (the 12-antenna and the 4-antenna heatmap, and
@@ -83,8 +89,9 @@ failure (exit code != 0):
    turns (plain, kernel, kernel, plain), ``torch.kthvalue`` beside the k-th
    smallest kernel as its library yardstick, the compacting detection entry
    beside the mask entry followed by ``mask_to_indices_2d`` (these two
-   kernels behind a busy device, so that the time is the device's, with the
-   launch-to-launch time beside it), and each kernel's bound: the
+   kernels and the beamforming kernels behind a busy device, so that the
+   time is the device's, with the launch-to-launch time beside it), and each
+   kernel's bound and ``share`` (bound / time): the
    larger of its bytes (inputs read once, outputs written once) over
    ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``; the noise
    kernel also on continuous maps (within 5% of the quantized ones: it
@@ -92,7 +99,7 @@ failure (exit code != 0):
    with the operations its own design spends (``kernel_own_ops``).
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
-13: the response, noise, detection and k-th-smallest kernels (each is held
+13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
 against its plain version before or while it is timed), and adds the sweeps
 that the default run leaves out: the detection kernel for one frame and at
 other windows, the k-th-smallest kernel at other widths, on rows with a
@@ -415,10 +422,10 @@ def raised_gates(phase, cpu, gpu):
 
 
 def timing(kernel_ms, plain_ms, n_bytes, n_ops, library_ms=None):
-    """One kernel's measured times and its bound, as the ``kernels`` line lists them."""
+    """One kernel's measured times, its bound and ``share`` (bound / time), as the ``kernels`` line lists them."""
     bound, by = bound_ms(n_bytes, n_ops)
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": library_ms}
+            "share": bound / kernel_ms, "library_ms": library_ms}
 
 
 def time_cfar(device, batch=1024, sweeps=False):
@@ -729,10 +736,24 @@ def check_beamform(device):
     cases = [("flagship", (1, 4, 63, 70, 64)), ("flagship", (7, 4, 63, 70, 64)),
              ("flagship", (1024, 4, 63, 70, 64)), ("processor", (3, 12, 63, 70, 64)),
              ("processor", (3, 7, 1, 70, 2048)), ("a16", (3, 16, 5, 50, 64)),
-             ("odd", (2, 5, 3, 33, 31))]
+             ("odd", (2, 5, 3, 33, 31)),
+             # the tile geometry: tiles that straddle frames, W = 1 with N not a
+             # multiple of the tile, odd K (8-byte copies), a config-sized cube,
+             # A = 1, A = 12 at the az-el grid, rows longer than a stage
+             ("straddle", (67, 4, 63, 70, 64)), ("w1", (4300, 4, 1, 70, 64)),
+             ("odd_k", (70, 4, 63, 33, 64)), ("config_cube", (17, 4, 256, 192, 64)),
+             ("a1", (300, 1, 16, 70, 64)), ("processor", (3, 12, 1, 70, 2048)),
+             ("chunked", (2, 16, 3, 500, 64)), ("chunked", (3, 16, 2, 401, 5)),
+             # x one element into its storage: not 16-byte aligned, 8-byte copies
+             ("misaligned", (67, 4, 63, 70, 64))]
     errs = {name: 0.0 for name in BEAMFORM_REPLACES}
     for i, (kind, shape) in enumerate(cases):
         x, steer = beamform_inputs(*shape, seed=40 + i, device=device)
+        if kind == "misaligned":
+            storage = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+            x = storage[1:].view(x.shape).copy_(x)
+            if x.data_ptr() % 16 == 0:
+                raise RuntimeError("the misaligned case is 16-byte aligned")
         for name, launch in (("capon", bkernel.capon_power),
                              ("bartlett", bkernel.bartlett_power)):
             before = launch.launches
@@ -761,11 +782,55 @@ def check_beamform(device):
                 if kind == "processor":
                     errs["bartlett_power"] = max(errs["bartlett_power"], snap_err)
                 fields = {"snapshot_form_max_abs_err": snap_err}
-            emit(phase="beamform_kernel", kernel=name, shape=list(shape[:4]),
+            emit(phase="beamform_kernel", kernel=name, kind=kind, shape=list(shape[:4]),
                  n_angles=shape[4], max_abs_err=err,
                  max_rel_err=float(((got - want).abs() / want.abs()).max()),
                  rtol=BEAMFORM_RTOL, **fields)
+    check_beamform_geometry()
     return errs
+
+
+def check_beamform_geometry():
+    """The kernel's tile geometry (its host code) equals the model the CPU tests check.
+
+    ``ops/kernels/beamform.py`` ``launch_geometry`` and ``tile_runs`` against
+    the library's ``beamform_geometry`` and ``beamform_tile_runs``, at every
+    (W, K) of a config under ``configs/``, every antenna count and the angle
+    counts in use, and at the shapes of ``check_beamform``.
+    """
+    import glob
+
+    from mmwave_radar_processing_tpu_torch import load_cfg
+    from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
+
+    shapes = set()
+    for path in glob.glob(os.path.join(HERE, "configs", "*.cfg")):
+        cfg = load_cfg(path)
+        for k in {cfg.frame.loops, cfg.chirps_per_frame}:
+            for n_ant in range(1, bkernel.MAX_ANTENNAS + 1):
+                for m in (64, 2048):
+                    for batch in (1, 7, 1024):
+                        shapes.add((batch * cfg.num_adc_samples, n_ant,
+                                    cfg.num_adc_samples, k, m))
+    shapes |= {(4221, 4, 63, 70, 64), (4300, 4, 1, 70, 64), (6, 16, 3, 500, 64),
+               (6, 16, 2, 401, 5), (4410, 4, 63, 33, 64), (1, 1, 1, 1, 1)}
+    n_runs = 0
+    for shape in sorted(shapes):
+        rows, n_ant, _, k, m = shape
+        for aligned in (True, False):
+            want = bkernel.launch_geometry(rows, n_ant, k, m, aligned)
+            got = bkernel.kernel_launch_geometry(rows, n_ant, k, m, aligned)
+            if got != want:
+                raise RuntimeError(f"kernel geometry {got} != model {want} at {shape}")
+        if want.smem_bytes > bkernel.SMEM_MAX:
+            raise RuntimeError(f"{want.smem_bytes} bytes of shared memory at {shape}")
+        for tile in {0, 1, want.tiles // 2, want.tiles - 1} & set(range(want.tiles)):
+            for chunk in range(want.n_chunks):
+                runs = bkernel.kernel_tile_runs(*shape, tile, chunk)
+                if runs != bkernel.tile_runs(*shape, tile, chunk):
+                    raise RuntimeError(f"kernel runs != model at {shape}, tile {tile}")
+                n_runs += len(runs)
+    emit(phase="beamform_geometry", shapes=len(shapes), runs_compared=n_runs, equal=True)
 
 
 def check_beamform_slice(cfg, device, frames):
@@ -843,8 +908,10 @@ def time_beamform(capon, raw_re, raw_im):
 
     Returns ``{entry: timing}``: Capon and Bartlett (covariance form) at
     [1024, 4, 63, 70], and Bartlett on the same data as snapshot blocks
-    [64512, 4, 1, 70] against the snapshot form.  No library call computes
-    either function.
+    [64512, 4, 1, 70] against the snapshot form.  Timed behind a busy device
+    (a kernel of ~0.05 ms launches more slowly than it runs), with the
+    launch-to-launch time beside it.  No library call computes either
+    function.
     """
     from mmwave_radar_processing_tpu_torch.ops import beamform
 
@@ -874,10 +941,15 @@ def time_beamform(capon, raw_re, raw_im):
            "bartlett_power_pallas_cov": b * w * (8 * a * a * k + m * (8 * a * a + 2 * a)),
            "bartlett_power": b * w * (8 * a * a * k + m * (8 * a * a + 2 * a))}
     for name, (kernel, plain, data) in cases.items():
-        kernel_ms, plain_ms, turns = take_turns(kernel, plain, 20, 20)
+        want = plain()  # the snapshot form of #9 gives [N, M] for the kernel's [N, 1, M]
+        maps_agree(kernel().reshape(want.shape), want, BEAMFORM_RTOL,
+                   0.0 if name == "capon_power_pallas" else 1e-4,
+                   f"{name} kernel at the timed shape")
+        kernel_ms, plain_ms, turns = take_turns(kernel, plain, 50, 20, queued=True)
         res[name] = timing(kernel_ms, plain_ms, n_bytes, ops[name])
         emit(phase="beamform_timing", replaces=name, shape=list(data.shape),
-             n_angles=m, turns=turns, **res[name])
+             n_angles=m, turns=turns, timed_behind_a_busy_device=True,
+             launch_to_launch_ms=cuda_ms(kernel, 50), **res[name])
     return res
 
 
@@ -1427,12 +1499,18 @@ def build_kernels():
 
 def kernel_times():
     """The hand-written kernels alone, each beside its plain version, as phase 13 times them."""
-    from mmwave_radar_processing_tpu_torch import build_velocity_pipeline, load_cfg
+    from mmwave_radar_processing_tpu_torch import (
+        build_capon_pipeline, build_velocity_pipeline, load_cfg,
+    )
 
     device = torch.device("cuda", 0)
     emit(phase="environment", card=gpu_name_and_power_limit(), torch=torch.__version__,
          cuda=torch.version.cuda)
     cfg = load_cfg(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
+    raw_re, raw_im, _ = bench_inputs(cfg, device)
+    time_beamform(build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method="capon",
+                                       loading=LOADING, device=device), raw_re, raw_im)
+    del raw_re, raw_im
     time_responses(build_velocity_pipeline(cfg, device=device), device)
     time_noise(device)
     time_cfar(device, sweeps=True)

@@ -208,10 +208,17 @@ def test_velocity_on_cuda_matches_cpu_and_launches_the_kernel(cuda, enable_preci
 #: (tests/test_beamform.py:380,426); Bartlett's covariance form cancels at
 #: deep nulls, hence an atol relative to the map's maximum
 BEAMFORM_RTOL = 5e-5
+#: then the shapes that reach the kernel's tile geometry: tiles that straddle
+#: frames (B*W not a multiple of the 16-row tile), W = 1 with N not a multiple
+#: of the tile, odd K (8-byte copies), a config-sized cube, A = 1, A = 12 at
+#: the 2048-angle grid, and rows longer than a stage (chunks of K, even and odd)
 BEAMFORM_SHAPES = [(1, 4, 63, 70, 64), (7, 4, 63, 70, 64), (1024, 4, 63, 70, 64),
                    (2, 12, 63, 70, 64), (3, 7, 1, 70, 2048), (3, 16, 5, 50, 64),
-                   (2, 5, 3, 33, 31)]
-BEAMFORM_IDS = ["b1", "b7", "b1024", "a12", "az_el", "a16", "odd"]
+                   (2, 5, 3, 33, 31), (67, 4, 63, 70, 64), (4300, 4, 1, 70, 64),
+                   (70, 4, 63, 33, 64), (17, 4, 256, 192, 64), (300, 1, 16, 70, 64),
+                   (3, 12, 1, 70, 2048), (2, 16, 3, 500, 64), (3, 16, 2, 401, 5)]
+BEAMFORM_IDS = ["b1", "b7", "b1024", "a12", "az_el", "a16", "odd", "straddle", "w1",
+                "odd_k", "config_cube", "a1", "a12_m2048", "chunked", "chunked_odd"]
 
 
 def _beamform_inputs(b, a, w, k, m, seed, device):
@@ -248,6 +255,40 @@ def test_bartlett_kernel_matches_both_plain_forms(cuda, shape):
     _assert_beamform_close(got, beamform.bartlett_power_reference(x, steer))
     # TPU kernel #9's plain form, mean_k |a^H x_k|^2
     _assert_beamform_close(got, beamform.bartlett_from_snapshots(x.movedim(1, 2), steer))
+
+
+def test_beamform_kernels_take_a_view_off_16_bytes(cuda):
+    # x one element into its storage: the runs are not 16-byte aligned, so the
+    # kernels copy 8-byte elements in place of bulk copies
+    shape = (67, 4, 63, 70, 64)
+    x, steer = _beamform_inputs(*shape, seed=5, device=cuda)
+    storage = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    view = storage[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    torch.testing.assert_close(beamform.capon_power(view, steer, loading=1e-2),
+                               beamform.capon_power_reference(x, steer, loading=1e-2),
+                               rtol=BEAMFORM_RTOL, atol=0)
+    _assert_beamform_close(beamform.bartlett_power(view, steer),
+                           beamform.bartlett_power_reference(x, steer))
+
+
+def test_beamform_kernel_geometry_equals_the_model(cuda):
+    # the library's host code against ops/kernels/beamform.py's model, which
+    # the CPU tests check (tests/test_torch_beamform_tiles.py)
+    for rows, n_ant, w, k, m in [(64512, 4, 63, 70, 64), (64512, 4, 1, 70, 64),
+                                 (63, 12, 63, 70, 64), (1, 12, 1, 70, 2048),
+                                 (4221, 4, 63, 70, 64), (4900, 2, 7, 10, 8),
+                                 (4352, 4, 256, 192, 64), (6, 16, 3, 500, 64),
+                                 (4410, 4, 63, 33, 31), (1, 1, 1, 1, 1)]:
+        for aligned in (True, False):
+            assert bkernel.kernel_launch_geometry(rows, n_ant, k, m, aligned) == \
+                bkernel.launch_geometry(rows, n_ant, k, m, aligned)
+        geo = bkernel.launch_geometry(rows, n_ant, k, m)
+        for tile in sorted({0, 1, geo.tiles // 2, geo.tiles - 1} & set(range(geo.tiles))):
+            for chunk in range(geo.n_chunks):
+                assert bkernel.kernel_tile_runs(rows, n_ant, w, k, m, tile, chunk) == \
+                    bkernel.tile_runs(rows, n_ant, w, k, m, tile, chunk)
 
 
 @pytest.mark.parametrize("case", ["cpu", "strided", "antennas", "mixed"])
