@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming and detector-API paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan and velocity-object-API paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -96,7 +96,30 @@ failure (exit code != 0):
    ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``; the noise
    kernel also on continuous maps (within 5% of the quantized ones: it
    searches ranks, not floats), for one frame, at two other windows, and
-   with the operations its own design spends (``kernel_own_ops``).
+   with the operations its own design spends (``kernel_own_ops``);
+14. ground kernel: the altitude recursion of the ground scan against its
+   plain version (a loop of T steps over tensors) on the same CUDA tensors,
+   equal bit for bit, at T in {1, 7, 1024, 5000}, precise and not, with a
+   range bias, on candidates that hold frames with no eligible candidate and
+   frames of equal candidates;
+15. ground slice: a simulated recording of 32 ground frames (the port's
+   ``ground_scene``, the altitude rising gradually from 0.55 m to 1.2 m and
+   back) through ``build_ground_point_cloud_pipeline`` on the GPU (one
+   launch of the recursion kernel) and on the CPU port: the altitude track
+   within ``ALTITUDE_ATOL``, counts and masks identical and points within
+   ``POINTS_ATOL`` on at least 31 of 32 frames, ``compare_outputs`` at its
+   raised gates;
+16. velocity object API: 16 ground frames through
+   ``processors.VelocityEstimator.process``, coarse and precise, on the GPU
+   and on the CPU with the same draws: ``vx`` within ``VX_ATOL`` on every
+   frame and the velocity within 1e-4 on at least 15; ms a frame and the
+   device's busy share;
+17. throughput of ``ground`` and ``ground_altitude`` (``stop_after=
+   "altitude"``) at T = 1024 on ``bench.py``'s inputs, with peak memory, and
+   the recursion kernel and its plain version on that path's own inputs at
+   T = 1024, timed behind a busy device, with the kernel's bound; the
+   path's stages timed alone, and one call profiled (busy share, top
+   kernels).
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -148,6 +171,20 @@ RANK_REPLACES = {
     "os_cfar_2d_noise": "mmwave_radar_processing_tpu/ops/pallas/os_cfar.py:218",
     "kth_smallest": "mmwave_radar_processing_tpu/ops/pallas/rank_select.py:88",
 }
+#: the ground scan's recursion: no Pallas kernel, XLA's lax.scan
+GROUND_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/altitude_track.cu"
+GROUND_REPLACES = "mmwave_radar_processing_tpu/parallel/ground_pipeline.py:248"
+GROUND_TS = (1, 7, 1024, 5000)
+#: operations the recursion needs a frame: for each of 3 candidates and then
+#: each of the chosen one's 2 refinements, a validity test, a compare with
+#: the minimum altitude, a subtraction, an absolute value, a compare with the
+#: gate and one with the running minimum (6 x 5 = 30); the found tests, the
+#: final select and the bias add (4)
+TRACK_OPS_PER_FRAME = 34
+#: bytes a frame: 3 candidates (float32) and their flags (one byte), 6
+#: refinements and their flags, 1 output
+TRACK_BYTES_PER_FRAME = 3 * 4 + 3 + 6 * 4 + 6 + 4
+VELOCITY_API_FRAMES = 16
 NO_SIDES_CFAR_PARAMS = dict(num_train=(2, 0), num_guard=(1, 2), rho=0.5, alpha=1.5)
 NO_BANDS_CFAR_PARAMS = dict(num_train=(0, 3), num_guard=(2, 1), rho=0.5, alpha=1.5)
 #: a 5 x 35 window: its runs are longer than the 31 columns that get a constant length
@@ -1312,6 +1349,265 @@ def check_altitude_track(cfg, device, frames):
         raise RuntimeError("the altitude track never moved: a vacuous check")
 
 
+def track_inputs(t, seed, device):
+    """Recursion inputs ``(cand, valid, zbins, zvalid)`` of ``t`` frames, with its edge cases.
+
+    Candidates on a 1/8 m grid (ties), every 11th frame three equal
+    candidates, every 13th from the 5th none within the gate, every 17th from
+    the 7th none valid; refinements within 0.3 m of their candidate.
+    """
+    rng = np.random.default_rng(seed)
+    cand = np.round(rng.uniform(0.0, 2.0, (t, 3)) * 8).astype(np.float32) / 8
+    cand[::11] = cand[::11, :1]
+    cand[5::13] = 3.0
+    valid = rng.random((t, 3)) < 0.7
+    valid[7::17] = False
+    zbins = (cand[..., None] + np.round(rng.uniform(-0.3, 0.3, (t, 3, 2)) * 16) / 16
+             ).astype(np.float32)
+    zvalid = rng.random((t, 3, 2)) < 0.8
+    return [torch.from_numpy(a).to(device) for a in (cand, valid, zbins, zvalid)]
+
+
+def check_altitude_kernel(device):
+    """The recursion kernel against its plain version on the same CUDA tensors; returns max |error|."""
+    from mmwave_radar_processing_tpu_torch.ops import altitude
+
+    for t in GROUND_TS:
+        cand, valid, zbins, zvalid = track_inputs(t, seed=t, device=device)
+        init = torch.tensor(0.9, device=device)
+        distinct = {}
+        for precise in (True, False):
+            kw = dict(min_altitude_m=0.25, altitude_search_limit_m=0.4, range_bias=0.05,
+                      precise=precise)
+            got = altitude.altitude_track(cand, valid, zbins, zvalid, init, **kw)
+            torch.cuda.synchronize()
+            want = altitude.altitude_track_reference(cand, valid, zbins, zvalid, init, **kw)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                diff = float((got[0] - want[0]).abs().max())
+                raise RuntimeError(f"altitude kernel != plain version at T={t}, "
+                                   f"precise={precise}: max |diff| {diff}")
+            distinct[str(precise)] = len(torch.unique(want[0]))
+        if t > 7 and min(distinct.values()) < 10:
+            raise RuntimeError(f"the track hardly moved at T={t}: a vacuous check")
+        emit(phase="ground_kernel", frames=t, precise=[True, False], range_bias=0.05,
+             equal=True, distinct_altitudes=distinct,
+             frames_of_equal_candidates=int((cand == cand[:, :1]).all(1).sum()),
+             frames_without_a_valid_candidate=int((~valid.any(1)).sum()))
+    return 0.0
+
+
+def ground_recording(cfg, frames=32, seed=8):
+    """Planes ``[frames, rx, ns, nc]`` of simulated ground: the altitude rises from 0.55 m to 1.2 m and back."""
+    from mmwave_radar_processing_tpu_torch.data import ground_scene, simulate_frame
+
+    rng = np.random.default_rng(seed)
+    raws = []
+    for i in range(frames):
+        alt = 0.55 + 0.65 * np.sin(np.pi * i / (frames - 1))
+        scene = ground_scene(cfg, altitude_m=alt, ego_vel=(0.4, 0.1, 0.0), num_patches=48,
+                             rng=rng, noise_sigma=0.03)
+        raws.append(simulate_frame(cfg, scene, rng))
+    raw = np.stack(raws)
+    return np.real(raw).astype(np.float32), np.imag(raw).astype(np.float32)
+
+
+def check_ground_slice(cfg, device):
+    """The ground scan on the GPU vs the CPU port over 32 simulated frames; returns kernel launches."""
+    from mmwave_radar_processing_tpu_torch import build_ground_point_cloud_pipeline
+    from mmwave_radar_processing_tpu_torch.ops.kernels.altitude_track import altitude_track
+
+    raw_re, raw_im = ground_recording(cfg)
+    n = len(raw_re)
+    gpu_pipeline = build_ground_point_cloud_pipeline(cfg, device=device)
+    re_gpu = torch.from_numpy(raw_re).to(device)
+    im_gpu = torch.from_numpy(raw_im).to(device)
+    torch.cuda.synchronize()
+    altitude_track.launches = 0
+    gpu = gpu_pipeline(re_gpu, im_gpu)
+    torch.cuda.synchronize()
+    launches = altitude_track.launches
+    if launches != 1:
+        raise RuntimeError(f"the ground path launched the recursion kernel {launches} times")
+    cpu = build_ground_point_cloud_pipeline(cfg, device="cpu")(
+        torch.from_numpy(raw_re), torch.from_numpy(raw_im))
+    gpu = type(gpu)(*(t.cpu() for t in gpu))
+    expected = {"points": (n, 128, 4), "valid": (n, 128), "count": (n,), "altitude": (n,),
+                "final_altitude": ()}
+    for name, shape in expected.items():
+        if tuple(getattr(gpu, name).shape) != shape:
+            raise RuntimeError(f"ground {name}: shape {tuple(getattr(gpu, name).shape)}")
+    if not (bool(torch.isfinite(gpu.points).all()) and bool(torch.isfinite(gpu.altitude).all())):
+        raise RuntimeError("non-finite ground outputs on the GPU")
+    alt_err = float((gpu.altitude - cpu.altitude).abs().max())
+    frame_ok = ((gpu.count == cpu.count) & (gpu.valid == cpu.valid).all(1)
+                & ((gpu.points - cpu.points).abs().amax(dim=(1, 2)) <= POINTS_ATOL))
+    agreeing = int(frame_ok.sum())
+    emit(phase="ground_slice", frames=n, launches=launches, altitude_max_abs_diff_m=alt_err,
+         altitude_atol_m=ALTITUDE_ATOL, final_altitude_m=[float(gpu.final_altitude),
+                                                         float(cpu.final_altitude)],
+         track_min_m=float(cpu.altitude.min()), track_max_m=float(cpu.altitude.max()),
+         frames_agreeing=agreeing, points_max_abs_diff=float(
+             (gpu.points - cpu.points).abs().max()), points_atol=POINTS_ATOL,
+         mean_count=float(gpu.count.float().mean()))
+    if not alt_err <= ALTITUDE_ATOL:
+        raise RuntimeError(f"ground altitude track differs from the CPU port's by {alt_err}")
+    if not float(cpu.altitude.max() - cpu.altitude.min()) > 0.3:
+        raise RuntimeError("the ground altitude track never followed the profile")
+    if agreeing < MIN_AGREEING_FRAMES:
+        raise RuntimeError(f"ground: only {agreeing} of {n} frames agree with the CPU port")
+    if int(gpu.count.sum()) == 0:
+        raise RuntimeError("no ground detections: a vacuous check")
+    raised_gates("ground", cpu, gpu)
+    return launches
+
+
+def velocity_api_frames(cfg, frames=VELOCITY_API_FRAMES, seed=9):
+    """Virtual cubes (complex64, CPU) of ground frames at 1.2 m, vx rising from 0.8 m/s."""
+    from mmwave_radar_processing_tpu_torch import VirtualArrayReformatter
+    from mmwave_radar_processing_tpu_torch.data import ground_scene, simulate_frame
+
+    rng = np.random.default_rng(seed)
+    var = VirtualArrayReformatter(cfg, device="cpu")
+    cubes = []
+    for i in range(frames):
+        scene = ground_scene(cfg, altitude_m=1.2, ego_vel=(0.8 + 0.02 * i, 0.3, -0.1),
+                             num_patches=200, rng=rng, noise_sigma=0.01)
+        cubes.append(var.process(simulate_frame(cfg, scene, rng)))
+    return cubes
+
+
+def check_velocity_api(cfg, device):
+    """``processors.VelocityEstimator`` frame by frame on the GPU vs the CPU port, coarse and precise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmwave_radar_processing_tpu_torch.processors import VelocityEstimator
+
+    kw = dict(lower_range_bound=0.5, upper_range_bound=0.5, min_R2_threshold=0.2,
+              min_inlier_percent=0.3)
+    cubes = velocity_api_frames(cfg)
+    gpu_cubes = [c.to(device) for c in cubes]
+    n = len(cubes)
+
+    def run(estimator, frames, precise):
+        vels, vxs = [], []
+        for cube in frames:
+            vels.append(estimator.process(adc_cube=cube, altitude=1.2,
+                                          enable_precise_responses=precise).copy())
+            vxs.append(float(estimator.ego_vx_estimate))
+        return np.array(vels), np.array(vxs)
+
+    for mode, precise in (("coarse", False), ("precise", True)):
+        # both draw their RANSAC scores from a CPU generator seeded alike
+        got, got_vx = run(VelocityEstimator(cfg, device=device, **kw), gpu_cubes, precise)
+        want, want_vx = run(VelocityEstimator(cfg, device="cpu", **kw), cubes, precise)
+        vx_err = float(np.abs(got_vx - want_vx).max())
+        frame_err = np.abs(got - want).max(axis=1)
+        agreeing = int((frame_err <= VELOCITY_ATOL).sum())
+        # time a fresh estimator after that warm-up, then profile one more pass
+        estimator = VelocityEstimator(cfg, device=device, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(estimator, gpu_cubes, precise)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(estimator, gpu_cubes, precise)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernel_us = sum((getattr(e, "self_device_time_total", 0.0) or 0.0)
+                        for e in prof.key_averages()
+                        if "CUDA" in str(getattr(e, "device_type", "")))
+        emit(phase="velocity_api", mode=mode, frames=n, frames_agreeing=agreeing,
+             vx_max_abs_diff=vx_err, velocity_max_abs_diff=float(frame_err.max()),
+             vx_mean=float(want_vx.mean()), velocity_nonzero=int(np.count_nonzero(got)),
+             ms_per_frame=seconds / n * 1e3, limited_by="host",
+             device_busy_share_under_profiler=kernel_us / wall_us)
+        if not vx_err <= VX_ATOL:
+            raise RuntimeError(f"velocity API ({mode}): vx differs by {vx_err}")
+        if agreeing < n - 1:
+            raise RuntimeError(f"velocity API ({mode}): only {agreeing} of {n} frames agree")
+        if not (np.count_nonzero(want_vx) == n and np.count_nonzero(got[:, :2]) > 0):
+            raise RuntimeError(f"velocity API ({mode}): zero estimates: a vacuous check")
+        if not np.isfinite(got).all():
+            raise RuntimeError(f"velocity API ({mode}): non-finite estimates on the GPU")
+
+
+def time_altitude_track(pipeline, raw_re, raw_im):
+    """The recursion kernel and its plain version on the ground path's own inputs, in turns.
+
+    The plain version is a loop of T small launches a step, so it is timed
+    once a turn.  No library call computes the recursion.
+    """
+    from mmwave_radar_processing_tpu_torch.ops import altitude
+
+    cand, valid, zbins, zvalid = pipeline.altitude_inputs(raw_re, raw_im)
+    init = torch.tensor(pipeline.min_altitude_m, device=cand.device)
+    kw = dict(min_altitude_m=pipeline.min_altitude_m,
+              altitude_search_limit_m=pipeline.altitude_search_limit_m,
+              range_bias=pipeline.range_bias, precise=pipeline.precise)
+
+    def kernel():
+        return altitude.altitude_track(cand, valid, zbins, zvalid, init, **kw)
+
+    def plain():
+        return altitude.altitude_track_reference(cand, valid, zbins, zvalid, init, **kw)
+
+    if not all(torch.equal(a, b) for a, b in zip(kernel(), plain())):
+        raise RuntimeError("altitude kernel != plain version on the ground path's inputs")
+    kernel_ms, plain_ms, turns = take_turns(kernel, plain, 50, 1, queued=True)
+    t = cand.shape[0]
+    res = timing(kernel_ms, plain_ms, TRACK_BYTES_PER_FRAME * t + 8, TRACK_OPS_PER_FRAME * t)
+    emit(phase="ground_kernel_timing", frames=t, turns=turns, timed_behind_a_busy_device=True,
+         launch_to_launch_ms=cuda_ms(kernel, 50),
+         frames_with_a_valid_candidate=int(valid.any(1).sum()), **res)
+    return res
+
+
+def measure_ground_stages(ground, raw_re, raw_im):
+    """Where the ground path's time goes at T = 1024: each stage alone, and one call profiled.
+
+    Stages in order, each timed with CUDA events over 10 calls on the
+    previous stage's outputs: the complex planes, the coarse candidates, the
+    zoom refinements, the recursion kernel, the detection.  Then one
+    ``ground`` call under ``torch.profiler``: the device's busy share and the
+    kernels that take the most device time.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    raw = torch.complex(raw_re, raw_im)
+    chirp0 = ground.loop0_chirps(raw)
+    cand, valid = ground.peak_candidates(chirp0)
+    zbins, zvalid = ground.refine_candidates(chirp0, cand)
+    init = torch.tensor(ground.min_altitude_m, device=raw.device)
+    alts, _ = ground.track(cand, valid, zbins, zvalid, init)
+    stages = {
+        "complex_planes": lambda: torch.complex(raw_re, raw_im),
+        "candidates": lambda: ground.peak_candidates(ground.loop0_chirps(raw)),
+        "refinements": lambda: ground.refine_candidates(chirp0, cand),
+        "recursion": lambda: ground.track(cand, valid, zbins, zvalid, init),
+        "detection": lambda: ground.detect_frames(raw, alts),
+    }
+    ms = {}
+    for name, fn in stages.items():
+        fn()
+        ms[name] = cuda_ms(fn, 10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ground(raw_re, raw_im)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(getattr(e, "self_device_time_total", 0.0) or 0.0, e.key, e.count)
+            for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
+    kernel_us = sum(us for us, _, _ in rows)
+    emit(phase="ground_stages", frames=int(raw.shape[0]), stage_ms=ms,
+         stages_sum_ms=sum(ms.values()), device_busy_share_under_profiler=kernel_us / wall_us,
+         device_kernels=sum(n for _, _, n in rows), device_ms=kernel_us / 1e3,
+         top_kernels=[{"ms": us / 1e3, "launches": n, "name": key[:70]}
+                      for us, key, n in sorted(rows, reverse=True)[:8]])
+
+
 def noise_kernel_own_ops(geo, n_train, cells, batch):
     """Operations the noise kernel's own design spends on ``batch`` maps.
 
@@ -1479,7 +1775,8 @@ def build_kernels():
     """``nvcc`` for each kernel source, all started together; emits each build."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
-    names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select")
+    names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select",
+             "altitude_track")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -1526,8 +1823,8 @@ def main():
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times]")
     from mmwave_radar_processing_tpu_torch import (
-        build_capon_pipeline, build_full_pipeline, build_point_cloud_pipeline,
-        build_velocity_pipeline, load_cfg, make_inputs,
+        build_capon_pipeline, build_full_pipeline, build_ground_point_cloud_pipeline,
+        build_point_cloud_pipeline, build_velocity_pipeline, load_cfg, make_inputs,
     )
 
     device = torch.device("cuda", 0)
@@ -1546,6 +1843,9 @@ def main():
                                  loading=LOADING, device=device)
     bartlett = build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method="bartlett",
                                     device=device)
+    ground = build_ground_point_cloud_pipeline(cfg, device=device)
+    ground_altitude = build_ground_point_cloud_pipeline(cfg, stop_after="altitude",
+                                                        device=device)
     if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError("TF32 is on: the port runs full float32 only")
@@ -1563,6 +1863,9 @@ def main():
     kth_err = check_kth_kernel(device)
     rank_launches = check_detector_slice(cfg, device, frames)
     check_altitude_track(cfg, device, frames)
+    track_err = check_altitude_kernel(device)
+    ground_launches = check_ground_slice(cfg, device)
+    check_velocity_api(cfg, device)
 
     raw_re, raw_im, alts = bench_inputs(cfg, device)
     measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
@@ -1573,6 +1876,10 @@ def main():
     measure_path("bartlett", lambda: bartlett(raw_re, raw_im), device)
     measure_path("beamform_range_dft", lambda: capon.range_dft(raw_re, raw_im), device)
     bf_ms = time_beamform(capon, raw_re, raw_im)
+    measure_path("ground", lambda: ground(raw_re, raw_im), device)
+    measure_path("ground_altitude", lambda: ground_altitude(raw_re, raw_im), device)
+    track_ms = time_altitude_track(ground, raw_re, raw_im)
+    measure_ground_stages(ground, raw_re, raw_im)
     del raw_re, raw_im, alts
     measure_detector_api(cfg, device, frames)
     cfar_ms = time_cfar(device)
@@ -1627,6 +1934,10 @@ def main():
                        bf_launches["capon"] + bf_launches["capon_processor"]),
         beamform_entry("bartlett_power_pallas_cov", bf_launches["bartlett"]),
         beamform_entry("bartlett_power", bf_launches["bartlett_processor"]),
+        # no TPU kernel's counterpart: the ground scan's lax.scan, one launch a call
+        {"name": "altitude_track", "route": "cuda", "source": GROUND_SOURCE,
+         "replaces": GROUND_REPLACES, "launches": ground_launches,
+         "max_abs_err": track_err, **track_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

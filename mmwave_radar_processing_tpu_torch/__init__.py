@@ -11,9 +11,12 @@ that runs the port names only the port.
 What is ported so far: the point-cloud main path (``union`` dataflow), the
 ego-velocity pipeline (coarse and precise), the combined pipeline, the
 Capon/Bartlett beamforming path (batched pipeline and per-frame processors),
-and the detector API (CFAR threshold maps, the CFAR detector classes, the
+the detector API (CFAR threshold maps, the CFAR detector classes, the
 range and range-Doppler detectors, the altimeter and the point-cloud
-generator).  Every ``build_*`` function and class takes an explicit ``device``.
+generator), the altimeter-gated ground scan, and the velocity object API
+(the Doppler-azimuth processor, the ADC-domain velocity estimator and the
+points estimators).  Every ``build_*`` function and class takes an explicit
+``device``.
 
 - ``config``, ``data``, ``utils.verify`` — configuration parsing and grids,
                       the scene simulator, seeded input frames.
@@ -27,21 +30,28 @@ generator).  Every ``build_*`` function and class takes an explicit ``device``.
 - ``ops.beamform``  — steering matrices, covariance, Bartlett and Capon
                       spectra (JAX: ``ops/beamform.py``,
                       ``ops/pallas/capon.py``, ``ops/pallas/beamform.py``).
+- ``ops.altitude``  — the ground scan's altitude recursion (JAX: the
+                      ``lax.scan`` of ``parallel/ground_pipeline.py``).
 - ``ops.kernels``   — the hand-written CUDA kernels behind ``ops.cfar``,
-                      ``ops.doppler_az`` and ``ops.beamform``, and their
-                      ``nvcc`` build.
-- ``ops.peaks``     — local maxima and prominent peaks (JAX: ``ops/peaks.py``).
+                      ``ops.doppler_az``, ``ops.beamform`` and
+                      ``ops.altitude``, and their ``nvcc`` build.
+- ``ops.peaks``     — local maxima, prominences and peak picking (JAX:
+                      ``ops/peaks.py``).
 - ``ops.ransac``    — batched fixed-trial RANSAC (JAX: ``ops/ransac.py``).
 - ``ops.masked``    — fixed-capacity compaction (JAX: ``ops/masked.py``).
 - ``detectors``     — the six CFAR detector classes and their registry.
 - ``processors``    — ``VirtualArrayReformatter``, ``RangeProcessor``,
                       ``RangeDopplerProcessor``, ``Altimeter``,
                       ``RangeDetector``, the range-Doppler detectors,
-                      ``PointCloudGenerator``, the ODS velocity sub-arrays
-                      and the Bartlett and Capon beamformer processors.
+                      ``PointCloudGenerator``, ``DopplerAzimuthProcessor``,
+                      ``VelocityEstimator`` and the Bartlett and Capon
+                      beamformer processors.
+- ``point_cloud_processing`` — ego velocity from points: ``VelocityEstimator``
+                      and ``VehicleVelEstimator``.
 - ``parallel``      — ``build_point_cloud_pipeline``, ``build_velocity_pipeline``,
-                      ``build_full_pipeline`` and ``build_capon_pipeline``,
-                      each an ``nn.Module``.
+                      ``build_full_pipeline``, ``build_capon_pipeline`` and
+                      ``build_ground_point_cloud_pipeline``, each an
+                      ``nn.Module``.
 
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
 """
@@ -52,6 +62,11 @@ from mmwave_radar_processing_tpu_torch.parallel.capon_pipeline import (
     CaponPipeline,
     build_capon_pipeline,
     load_capon_constants,
+)
+from mmwave_radar_processing_tpu_torch.parallel.ground_pipeline import (
+    GroundPipeline,
+    GroundPipelineOut,
+    build_ground_point_cloud_pipeline,
 )
 from mmwave_radar_processing_tpu_torch.parallel.full_pipeline import (
     FullPipeline,
@@ -104,6 +119,9 @@ __all__ = [
     "load_velocity_constants",
     "FullPipeline",
     "build_full_pipeline",
+    "GroundPipeline",
+    "GroundPipelineOut",
+    "build_ground_point_cloud_pipeline",
     "CaponPipeline",
     "build_capon_pipeline",
     "load_capon_constants",

@@ -111,6 +111,15 @@ def aoa_union_layout(az_idx: Sequence[int], el_idx: Sequence[int]):
     return union_idx, az_pos, el_pos, needed
 
 
+#: float32 1/ln(10): ``jnp.log10`` is ``log(x) * (1/ln 10)``
+_INV_LN10 = np.float32(0.4342944819032518)
+
+
+def db20(x: torch.Tensor) -> torch.Tensor:
+    """``20*log10(x)`` as the JAX package computes it: ``20 * (log(x) * (1/ln 10))`` in float32."""
+    return 20.0 * (torch.log(x) * _INV_LN10)
+
+
 def cabs(z: torch.Tensor) -> torch.Tensor:
     """``sqrt(re*re + im*im)`` — the JAX package's magnitude, not ``torch.abs``.
 

@@ -59,3 +59,18 @@ def mask_to_indices_2d(mask: torch.Tensor, capacity: int, *, interior=None):
                 valid, count)
     flat_idx, valid, count = mask_to_indices(mask.flatten(-2), capacity)
     return flat_idx // c, flat_idx % c, valid, count
+
+
+def top_k_masked(values: torch.Tensor, valid: torch.Tensor, k: int):
+    """Top-``k`` of ``values`` restricted to the ``valid`` entries, along the last axis.
+
+    Returns ``(top_values, top_indices, top_valid)``, each ``[..., k]``:
+    values descending, ties by ascending index (a stable descending sort;
+    ``lax.top_k``'s order for ``k`` below the row's length, while where it
+    keeps every entry it may order equal values otherwise).  Invalid entries
+    count as ``-inf`` and are never marked valid.
+    """
+    masked = torch.where(valid, values, float("-inf"))
+    top_values, top_indices = torch.sort(masked, dim=-1, descending=True, stable=True)
+    top_values, top_indices = top_values[..., :k], top_indices[..., :k]
+    return top_values, top_indices, top_values > float("-inf")

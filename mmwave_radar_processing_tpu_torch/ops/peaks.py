@@ -3,17 +3,20 @@
 What the velocity path and the altimeter use: strict local maxima, the
 highest local maximum whose topographic prominence (scipy's definition, full
 window) reaches a floor, and the strongest such peaks within a band below the
-highest.  Every step is a comparison, a sort or a min/max, so the
-indices and the ``found`` flags equal the JAX package's exactly, ties
-included.  The JAX functions work on one row under ``vmap``; here every
+highest; and for the object API the dense prominence of every sample,
+``find_peaks`` and ``best_peak``.  Every step is a comparison, a sort or a
+min/max, so the indices and the ``found`` flags equal the JAX package's
+exactly, ties included.  The JAX functions work on one row under ``vmap``; here every
 function takes ``[..., N]`` and works on all leading rows at once.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from mmwave_radar_processing_tpu_torch.ops.masked import mask_to_indices
 
 
 def local_maxima(x: torch.Tensor) -> torch.Tensor:
@@ -25,6 +28,55 @@ def local_maxima(x: torch.Tensor) -> torch.Tensor:
     left = torch.cat([inf, x[..., :-1]], dim=-1)
     right = torch.cat([x[..., 1:], inf], dim=-1)
     return (x > left) & (x > right)
+
+
+def prominences(x: torch.Tensor, peak_mask: torch.Tensor) -> torch.Tensor:
+    """Topographic prominence of every sample of ``[..., N]`` taken as a peak.
+
+    scipy's ``peak_prominences`` with a full window: ``x[i]`` less the higher
+    of its two bases, each the minimum of ``x`` between ``i`` and the nearest
+    strictly higher sample on that side (or the row's end).  Dense pairwise
+    ``[..., N, N]`` masks, as in the JAX package; entries where
+    ``peak_mask`` is False are 0.
+    """
+    n = x.shape[-1]
+    i = torch.arange(n, device=x.device)[:, None]
+    j = torch.arange(n, device=x.device)[None, :]
+    xi = x[..., :, None]
+    xj = x[..., None, :]
+    higher = xj > xi
+    nhl = torch.where(higher & (j < i), j, -1).amax(dim=-1, keepdim=True)
+    left_min = torch.where((j > nhl) & (j <= i), xj, float("inf")).amin(dim=-1)
+    nhr = torch.where(higher & (j > i), j, n).amin(dim=-1, keepdim=True)
+    right_min = torch.where((j >= i) & (j < nhr), xj, float("inf")).amin(dim=-1)
+    prom = x - torch.maximum(left_min, right_min)
+    return torch.where(peak_mask, prom, 0.0)
+
+
+def find_peaks(x: torch.Tensor, capacity: int,
+               min_prominence: Optional[float] = None):
+    """Strict local maxima of ``[..., N]``, optionally of prominence ``>= min_prominence``.
+
+    Returns ``(indices, valid, count)`` of :func:`..masked.mask_to_indices`:
+    ascending index order, as ``scipy.signal.find_peaks`` lists them.
+    """
+    mask = local_maxima(x)
+    if min_prominence is not None:
+        mask = mask & (prominences(x, mask) >= min_prominence)
+    return mask_to_indices(mask, capacity)
+
+
+def best_peak(x: torch.Tensor, capacity: int = 32):
+    """Highest local maximum of each row: ``(index int64, value, found bool)``, each ``[...]``.
+
+    The reference's ``peaks[argmax(x[peaks])]``; ties go to the lowest index
+    and a row with no local maximum gives index 0 and ``found`` False.
+    ``capacity`` is the JAX signature's and is not used.
+    """
+    mask = local_maxima(x)
+    idx = torch.argmax(torch.where(mask, x, float("-inf")), dim=-1)
+    value = torch.gather(x, -1, idx[..., None])[..., 0]
+    return idx, value, mask.any(dim=-1)
 
 
 def _candidate_peaks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -56,8 +56,6 @@ from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
 MAX_TRIALS = 20
 MIN_SAMPLES = 10
 MIN_PROMINENCE_DB = 4.0
-#: float32 1/ln(10): ``jnp.log10`` is ``log(x) * (1/ln 10)``
-_INV_LN10 = np.float32(0.4342944819032518)
 STOP_AFTER = (None, "responses", "vx", "peaks")
 
 
@@ -82,7 +80,7 @@ def _angle_tables(az, el, valid_cols):
 
 def _db(resp: torch.Tensor, floor_db: float) -> torch.Tensor:
     """``20*log10(resp + 1e-12)`` clamped to ``floor_db`` below each frame's maximum."""
-    db = 20.0 * (torch.log(resp + 1e-12) * _INV_LN10)
+    db = dft.db20(resp + 1e-12)
     top = db.amax(dim=(-2, -1), keepdim=True)
     return torch.maximum(db, top - floor_db)
 

@@ -23,6 +23,9 @@ from mmwave_radar_processing_tpu_torch.processors.detection import (
     RangeDopplerGroundDetector,
     get_range_doppler_detector_registry,
 )
+from mmwave_radar_processing_tpu_torch.processors.doppler_azimuth import (
+    DopplerAzimuthProcessor,
+)
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     PointCloud,
     PointCloudGenerator,
@@ -32,6 +35,9 @@ from mmwave_radar_processing_tpu_torch.processors.range_doppler import (
     RangeDopplerProcessor,
 )
 from mmwave_radar_processing_tpu_torch.processors.range_resp import RangeProcessor
+from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
+    VelocityEstimator,
+)
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import (
     VirtualArrayReformatter,
 )
@@ -53,4 +59,6 @@ __all__ = [
     "load_detection_constants",
     "BartlettBeamformerProcessor",
     "CaponBeamformerProcessor",
+    "DopplerAzimuthProcessor",
+    "VelocityEstimator",
 ]

@@ -44,7 +44,7 @@ from mmwave_radar_processing_tpu_torch.processors.range_resp import (
 DEFAULT_MAX_DETS = 256
 
 #: cos(60 deg) in float32, as the JAX package computes it
-_COS_60 = float(np.cos(np.deg2rad(np.float32(60.0)), dtype=np.float32))
+COS_60 = float(np.cos(np.deg2rad(np.float32(60.0)), dtype=np.float32))
 
 
 class Detections(NamedTuple):
@@ -278,7 +278,7 @@ class RangeDopplerGroundDetector(RangeDopplerDetector):
         """
         bins = self._range_bins_t
         min_idx = torch.argmin(torch.abs(bins - altitude_m))
-        max_rng = torch.minimum(bins.max(), altitude_m / _COS_60)
+        max_rng = torch.minimum(bins.max(), altitude_m / COS_60)
         max_idx = torch.argmin(torch.abs(bins - max_rng))
         return (self._rows >= min_idx) & (self._rows <= max_idx)
 

@@ -17,12 +17,14 @@ from mmwave_radar_processing_tpu_torch import (
     BartlettBeamformerProcessor,
     CaponBeamformerProcessor,
     build_capon_pipeline,
+    build_ground_point_cloud_pipeline,
     build_point_cloud_pipeline,
     build_velocity_pipeline,
     load_cfg,
     make_inputs,
 )
-from mmwave_radar_processing_tpu_torch.ops import beamform, cfar, doppler_az, masked
+from mmwave_radar_processing_tpu_torch.ops import altitude, beamform, cfar, doppler_az, masked
+from mmwave_radar_processing_tpu_torch.ops.kernels import altitude_track as akernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as dkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
@@ -747,3 +749,52 @@ def test_kth_smallest_takes_rows_off_a_16_byte_boundary(cuda):
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
         assert torch.equal(rank_select.kth_smallest(x, w // 2),
                            cfar.kth_smallest_reference(x, w // 2))
+
+
+# --------------------------------------------------------------------------- #
+# the altitude-recursion kernel of the ground scan
+# --------------------------------------------------------------------------- #
+def _track_inputs(t, seed, device):
+    """Candidates on a 1/8 m grid (ties), runs of equal candidates, frames with none eligible."""
+    rng = np.random.default_rng(seed)
+    cand = np.round(rng.uniform(0.0, 2.0, (t, 3)) * 8).astype(np.float32) / 8
+    cand[::11] = cand[::11, :1]  # three equal candidates
+    cand[5::13] = 3.0  # nothing within the gate
+    valid = rng.random((t, 3)) < 0.7
+    valid[7::17] = False  # no valid candidate
+    zbins = (cand[..., None] + np.round(rng.uniform(-0.3, 0.3, (t, 3, 2)) * 16) / 16
+             ).astype(np.float32)
+    zvalid = rng.random((t, 3, 2)) < 0.8
+    return [torch.from_numpy(a).to(device) for a in (cand, valid, zbins, zvalid)]
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("t", [1, 7, 1024, 5000])
+def test_altitude_kernel_equals_plain_version(cuda, t, precise):
+    cand, valid, zbins, zvalid = _track_inputs(t, seed=t, device=cuda)
+    init = torch.tensor(0.9, device=cuda)
+    kw = dict(min_altitude_m=0.25, altitude_search_limit_m=0.4, range_bias=0.05,
+              precise=precise)
+    before = akernel.altitude_track.launches
+    got = altitude.altitude_track(cand, valid, zbins, zvalid, init, **kw)
+    torch.cuda.synchronize()
+    assert akernel.altitude_track.launches == before + 1
+    want = altitude.altitude_track_reference(cand, valid, zbins, zvalid, init, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if t > 7:
+        assert len(torch.unique(want[0])) > 10  # the track moves
+
+
+def test_ground_pipeline_on_cuda_matches_cpu_and_launches_the_kernel_once(cuda):
+    cfg = load_cfg(CFG_PATH, array_geometry="ods", array_direction="down")
+    raw_re, raw_im, _ = make_inputs(cfg, 8, seed=7)
+    akernel.altitude_track.launches = 0
+    got = build_ground_point_cloud_pipeline(cfg, altitude_search_limit_m=1.5, device=cuda)(
+        torch.from_numpy(raw_re).to(cuda), torch.from_numpy(raw_im).to(cuda))
+    torch.cuda.synchronize()
+    assert akernel.altitude_track.launches == 1
+    want = build_ground_point_cloud_pipeline(cfg, altitude_search_limit_m=1.5, device="cpu")(
+        torch.from_numpy(raw_re), torch.from_numpy(raw_im))
+    assert (got.altitude.cpu() - want.altitude).abs().max() <= 5e-3
+    assert int(want.count.sum()) > 0
+    assert torch.equal(got.count.cpu(), want.count)

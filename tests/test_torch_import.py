@@ -23,8 +23,17 @@ from mmwave_radar_processing_tpu_torch import (
     VirtualArrayReformatter,
     build_capon_pipeline,
     build_full_pipeline,
+    build_ground_point_cloud_pipeline,
     build_point_cloud_pipeline,
     build_velocity_pipeline,
+)
+from mmwave_radar_processing_tpu_torch.point_cloud_processing import (
+    VehicleVelEstimator,
+    VelocityEstimator as PointsVelocityEstimator,
+)
+from mmwave_radar_processing_tpu_torch.processors import (
+    DopplerAzimuthProcessor,
+    VelocityEstimator,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,6 +41,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _JAX_FREE_RUN = """
 import sys
 sys.modules["jax"] = None  # any import of jax now fails, even a preloaded one
+import numpy as np
 import torch
 torch.set_num_threads(1)
 import mmwave_radar_processing_tpu_torch as port
@@ -78,12 +88,26 @@ for aoa in ("fft", "capon"):
     pts = port.PointCloudGenerator(cfg, [0, 3, 4, 7], [9, 8, 5, 4], aoa_method=aoa,
                                    device="cpu").process(virt)
     assert pts.shape[1] == 4 and len(pts) > 0
+# the ground scan and the velocity object API
+ground = port.build_ground_point_cloud_pipeline(cfg, device="cpu")(re_t, im_t)
+assert ground.points.shape == (1, 128, 4) and ground.altitude.shape == (1,)
+assert bool(torch.isfinite(ground.points).all()) and ground.final_altitude.shape == ()
+from mmwave_radar_processing_tpu_torch.processors import VelocityEstimator
+est = VelocityEstimator(cfg, 0.5, 0.5, device="cpu")
+for precise in (False, True):
+    v = est.process(adc_cube=virt, altitude=1.2, enable_precise_responses=precise)
+    assert v.shape == (3,) and bool(np.isfinite(v).all())
+from mmwave_radar_processing_tpu_torch.point_cloud_processing import (
+    VehicleVelEstimator, VelocityEstimator as PointsVE)
+cloud = pts.astype(np.float64)
+assert PointsVE(cfg, device="cpu").process(points=cloud).shape == (3,)
+VehicleVelEstimator(device="cpu").estimate_ego_vel(cloud)
 # every module of the port, found by walking the package
 import importlib, pkgutil
 walked = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in walked:
     importlib.import_module(name)
-assert len(walked) >= 35, walked
+assert len(walked) >= 42, walked
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 jax_package = sorted(m for m in sys.modules if m == "mmwave_radar_processing_tpu"
@@ -167,6 +191,12 @@ DETECTOR_API = {
     "RangeDopplerGroundDetector": lambda cfg, **kw: RangeDopplerGroundDetector(cfg, **kw),
     "PointCloudGenerator": lambda cfg, **kw: PointCloudGenerator(
         cfg, [0, 3, 4, 7], [9, 8, 5, 4], **kw),
+    "build_ground_point_cloud_pipeline": lambda cfg, **kw: build_ground_point_cloud_pipeline(
+        cfg, **kw).rng_dft,
+    "DopplerAzimuthProcessor": lambda cfg, **kw: DopplerAzimuthProcessor(cfg, **kw),
+    "VelocityEstimator": lambda cfg, **kw: VelocityEstimator(cfg, 0.5, 0.5, **kw),
+    "PointsVelocityEstimator": lambda cfg, **kw: PointsVelocityEstimator(cfg, **kw),
+    "VehicleVelEstimator": lambda cfg, **kw: VehicleVelEstimator(**kw),
 }
 
 
