@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan and velocity-object-API paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API and spectral-map paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -119,7 +119,31 @@ failure (exit code != 0):
    the recursion kernel and its plain version on that path's own inputs at
    T = 1024, timed behind a busy device, with the kernel's bound; the
    path's stages timed alone, and one call profiled (busy share, top
-   kernels).
+   kernels);
+18. spectral slice: the frames of phase 5 through the four
+   ``spectral_pipeline`` builders on the GPU and on the CPU port, maps within
+   rtol ``MAP_RTOL`` and atol 1e-4 times the maximum; DBS with seeded
+   velocities whose ``|v_xy|`` straddles the 0.25 m/s gate: Doppler bins
+   equal on at least ``MIN_DBS_BIN_AGREEMENT`` of (frame, angle) pairs, maps
+   within the bar where they agree; then the processors on 3 frames
+   (range-angle, DBS slow and fast, strip map at 0.2 and 0.35 m/s with its
+   crop slices identical) and micro-Doppler over the 32 frames (``process``
+   and ``scan``).  No hand-written kernel may launch on these paths;
+19. synthetic-aperture slice: 32 simulated frames, on a steady track and
+   with a velocity step that the gate rejects, through
+   ``build_synthetic_aperture_pipeline`` and the processor frame by frame
+   (without and with calibration) on both devices: gates identical, maps
+   within the bar; with calibration the GPU's solve for the CPU's reflector
+   picks within the ``sar_ods`` golden's bar (rtol 1e-3, atol 1e-5) on every
+   frame, and where both sides pick alike, their own calibrated geometry
+   within it and the maps within 5e-3 of the maximum; the picks agree on at
+   least ``MIN_CALIBRATION_AGREEMENT`` of the frames (at a broad beam's flat
+   top neighbouring azimuth bins tie within rounding);
+20. throughput of the spectral maps, strip map and DBS at batch 1024 and of
+   micro-Doppler (history 20) and synthetic aperture (F = 3) on a recording
+   of T = 1024, on ``bench.py``'s planes, with peak memory; one call of each
+   profiled (busy share, top kernels); the spectral-maps and DBS stages
+   timed alone.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -224,6 +248,15 @@ POINTS_ATOL = 1e-5
 #: velocity bars (GPU vs CPU port): those the tests hold the CPU port to vs JAX
 VX_ATOL, VELOCITY_ATOL, STATS_ATOL = 1e-5, 1e-4, 1e-3
 MIN_AGREEING_FRAMES = 31
+MIN_DBS_BIN_AGREEMENT = 0.99
+# the calibration's reflector picks are comparisons of float32 dB values; at
+# the flat top of the 1.8 m reflector's beam neighbouring azimuth bins tie to
+# within rounding (the port and the JAX package on one CPU pick alike on 50
+# of 54 frames of the recording, the GPU and the CPU port on 24 of 30): a
+# sanity bar, the solve itself is held on every frame
+MIN_CALIBRATION_AGREEMENT = 0.5
+SA_FRAMES = 32
+SA_VEL = (0.2, 0.01, 0.0)
 RANSAC_SEED = 0
 
 
@@ -1533,6 +1566,264 @@ def check_velocity_api(cfg, device):
             raise RuntimeError(f"velocity API ({mode}): non-finite estimates on the GPU")
 
 
+def kernel_wrappers():
+    """Every hand-written kernel's wrapper (each counts its launches), by name."""
+    from mmwave_radar_processing_tpu_torch.ops.kernels import (
+        altitude_track, beamform, doppler_az, os_cfar, rank_select,
+    )
+
+    return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect, "os_cfar_2d_noise":
+            os_cfar.os_cfar_2d_noise, "kth_smallest": rank_select.kth_smallest,
+            "doppler_az_responses": doppler_az.doppler_az_responses,
+            "capon_power": beamform.capon_power, "bartlett_power": beamform.bartlett_power,
+            "altitude_track": altitude_track.altitude_track}
+
+
+def no_kernel_launched(phase, fn):
+    """Run ``fn`` with every launch count at 0 and raise if a hand-written kernel ran.
+
+    No TPU kernel lies on the spectral-map paths (the JAX package computes
+    them in plain XLA), so the port's versions are library calls only.
+    """
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launched = {name: w.launches for name, w in wrappers.items() if w.launches}
+    if launched:
+        raise RuntimeError(f"{phase}: hand-written kernels launched on a library path: {launched}")
+    return out
+
+
+def dbs_velocities(n, seed=11):
+    """float32 ``[n, 3]`` velocities whose ``|v_xy|`` straddles the DBS gate (0.05-0.6 m/s)."""
+    rng = np.random.default_rng(seed)
+    speed = rng.uniform(0.05, 0.6, n)
+    heading = rng.uniform(-np.pi, np.pi, n)
+    v = np.stack([speed * np.cos(heading), speed * np.sin(heading),
+                  rng.normal(0.0, 0.05, n)], axis=1)
+    return torch.from_numpy(v.astype(np.float32))
+
+
+def check_dbs(gpu_pipe, cpu_pipe, gpu_in, cpu_in, vel):
+    """DBS on the GPU vs the CPU: Doppler bins equal on >= 99% of (frame, angle), maps where they agree."""
+    out = no_kernel_launched("dbs", lambda: gpu_pipe(*gpu_in, vel.to(gpu_in[0].device))).cpu()
+    want = cpu_pipe(*cpu_in, vel)
+    fast = torch.sqrt(vel[:, 0] ** 2 + vel[:, 1] ** 2) >= cpu_pipe.min_x_y_vel_dbs
+    if bool(fast.all()) or not bool(fast.any()):
+        raise RuntimeError("the DBS velocities do not take both branches")
+    bins_gpu = gpu_pipe.doppler_bins(vel.to(gpu_in[0].device)).cpu()
+    bins_cpu = cpu_pipe.doppler_bins(vel)
+    same = bins_gpu == bins_cpu
+    share = float(same.float().mean())
+    held = same | ~fast[:, None]  # a slow frame's map is the plain one
+    err = maps_agree(out.transpose(1, 2)[held], want.transpose(1, 2)[held], MAP_RTOL, 1e-4,
+                     "dbs pipeline")
+    emit(phase="spectral_slice", path="dbs", batch=len(vel), fast_frames=int(fast.sum()),
+         bins_agreeing=int(same.sum()), bins=same.numel(), bins_agreeing_share=share,
+         max_abs_diff=err, map_max=float(want.max()))
+    if share < MIN_DBS_BIN_AGREEMENT:
+        raise RuntimeError(f"DBS Doppler bins agree on only {share:.4f} of (frame, angle) pairs")
+
+
+def check_spectral_slice(cfg, device, frames):
+    """The four spectral-map builders and the object processors on the GPU vs the CPU port."""
+    from mmwave_radar_processing_tpu_torch import (
+        MicroDopplerProcessor, RangeAngleProcessor, RangeAngleProcessorDBSEnhanced,
+        StripMapSARProcessor, build_dbs_pipeline, build_micro_doppler_pipeline,
+        build_spectral_maps_pipeline, build_strip_map_pipeline,
+    )
+    from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
+
+    cpu_in = [torch.from_numpy(a) for a in frames[:2]]
+    gpu_in = [t.to(device) for t in cpu_in]
+    n = len(cpu_in[0])
+    builders = {"spectral_maps": build_spectral_maps_pipeline,
+                "micro_doppler": build_micro_doppler_pipeline,
+                "strip_map": build_strip_map_pipeline}
+    shapes = {"spectral_maps": [(n, 63, 70), (n, 63, 64), (n, 70, 54)],
+              "micro_doppler": [(n, 70, 20)], "strip_map": [(n, 63, 70)]}
+    for name, build in builders.items():
+        gpu_pipe, cpu_pipe = build(cfg, device=device), build(cfg, device="cpu")
+        got = no_kernel_launched(name, lambda: gpu_pipe(*gpu_in))
+        want = cpu_pipe(*cpu_in)
+        got, want = (list(got), list(want)) if name == "spectral_maps" else ([got], [want])
+        errs = [maps_agree(g.cpu(), w, MAP_RTOL, 1e-4, f"{name} map {i}")
+                for i, (g, w) in enumerate(zip(got, want))]
+        if [tuple(g.shape) for g in got] != shapes[name]:
+            raise RuntimeError(f"{name}: shapes {[tuple(g.shape) for g in got]}")
+        emit(phase="spectral_slice", path=name, batch=n, max_abs_diff=max(errs),
+             map_max=[float(w.max()) for w in want])
+    check_dbs(build_dbs_pipeline(cfg, device=device), build_dbs_pipeline(cfg, device="cpu"),
+              gpu_in, cpu_in, dbs_velocities(n))
+
+    # the object processors, fresh objects on each side
+    raw = torch.complex(*cpu_in)
+    virt = reformat(raw, num_rx=cfg.num_rx_antennas, cfgs_per_loop=cfg.chirp_cfgs_per_loop)
+    errs = {}
+
+    def held(key, got, want):
+        errs[key] = max(errs.get(key, 0.0), maps_agree(got, want, MAP_RTOL, 1e-4, key))
+
+    ra = (RangeAngleProcessor(cfg, device=device), RangeAngleProcessor(cfg, device="cpu"))
+    dbs = (RangeAngleProcessorDBSEnhanced(cfg, num_angle_bins_dbs_enhanced_response=100,
+                                          device=device),
+           RangeAngleProcessorDBSEnhanced(cfg, num_angle_bins_dbs_enhanced_response=100,
+                                          device="cpu"))
+    sar = (StripMapSARProcessor(cfg, device=device), StripMapSARProcessor(cfg, device="cpu"))
+    for i in range(3):
+        held("range_angle", ra[0].process(virt[i].to(device), rx_antennas=AZ_IDXS).cpu(),
+             ra[1].process(virt[i], rx_antennas=AZ_IDXS))
+        for label, v in (("dbs_slow", [0.1, 0.05, 0.0]), ("dbs_fast", [0.5, 0.2, 0.0])):
+            held(label, dbs[0].process(virt[i].to(device), velocity_ned=v,
+                                       rx_antennas=AZ_IDXS).cpu(),
+                 dbs[1].process(virt[i], velocity_ned=v, rx_antennas=AZ_IDXS))
+        for vel in (0.2, 0.35):
+            got = sar[0].process(raw[i].to(device), vel_m_per_s=vel)
+            want = sar[1].process(raw[i], vel_m_per_s=vel)
+            slices = [(p.valid_ranges_slice, p.valid_angles_slice) for p in sar]
+            if slices[0] != slices[1] or got.shape != want.shape or got.size == 0:
+                raise RuntimeError(f"strip map at {vel} m/s: crops {slices}, shapes "
+                                   f"{got.shape} and {want.shape}")
+            held(f"strip_map_{vel}", torch.from_numpy(np.abs(got)),
+                 torch.from_numpy(np.abs(want)))
+    md = [MicroDopplerProcessor(cfg, target_ranges=(0.5, 2.0), device=d) for d in (device, "cpu")]
+    virt_gpu = virt.to(device)
+    for i in range(n):
+        held("micro_doppler", md[0].process(virt_gpu[i]).cpu(), md[1].process(virt[i]))
+    held("micro_doppler_scan", md[0].scan(virt_gpu)[1].cpu(), md[1].scan(virt)[1])
+    emit(phase="spectral_processors", frames=3, micro_doppler_frames=n, max_abs_diff=errs)
+
+
+def sa_recording(cfg, frames=SA_FRAMES, seed=21):
+    """Planes ``[frames, rx, ns, nc]`` of three reflectors (two moving), and the two velocity tracks.
+
+    ``steady``: ``SA_VEL`` on every frame; ``step``: 0.45 m/s along x on
+    frames 16-19, above ``max_vel``, so the gate rejects frames 16-21.
+    """
+    from mmwave_radar_processing_tpu_torch.data import PointTarget, Scene, simulate_frame
+
+    rng = np.random.default_rng(seed)
+    raws = []
+    for i in range(frames):
+        scene = Scene(targets=[
+            PointTarget(range_m=1.0 + 0.01 * i, rcs=4.0),
+            PointTarget(range_m=1.8, azimuth_rad=0.3, velocity_m_s=0.4, rcs=2.0),
+            PointTarget(range_m=2.6, azimuth_rad=-0.2, velocity_m_s=-0.3, rcs=2.0),
+        ], noise_sigma=0.03)
+        raws.append(simulate_frame(cfg, scene, rng))
+    raw = np.stack(raws)
+    steady = np.tile(SA_VEL, (frames, 1))
+    step = steady.copy()
+    step[16:20] = (0.45, 0.01, 0.0)
+    return raw, {"steady": steady, "step": step}
+
+
+def geometry_agrees(got, want, what):
+    """Raise unless ``|got - want| <= 1e-5 + 1e-3*|want|`` (the sar_ods golden's bar); returns max |diff|."""
+    diff = np.abs(got - want)
+    if not (diff <= 1e-5 + 1e-3 * np.abs(want)).all():
+        raise RuntimeError(f"calibrated geometry ({what}) differs by {diff.max()}")
+    return float(diff.max())
+
+
+def check_sa_slice(cfg, device):
+    """Synthetic aperture on the GPU vs the CPU port: the batched pipeline and the processor.
+
+    The gate's decisions equal, the maps within ``MAP_RTOL``; with
+    calibration, the GPU's solve for the CPU's reflector picks within the
+    golden's bars on every frame, and where both sides pick alike, their
+    own calibrated geometry and map too.
+    """
+    from mmwave_radar_processing_tpu_torch import (
+        SyntheticArrayBeamformerProcessor, build_synthetic_aperture_pipeline,
+    )
+    from mmwave_radar_processing_tpu_torch.processors.synthetic_array import (
+        CalibrationTargets,
+    )
+
+    raw, tracks = sa_recording(cfg)
+    planes = [torch.from_numpy(np.ascontiguousarray(f(raw)).astype(np.float32))
+              for f in (np.real, np.imag)]
+    gpu_pipe = build_synthetic_aperture_pipeline(cfg, device=device)
+    cpu_pipe = build_synthetic_aperture_pipeline(cfg, device="cpu")
+    kw = dict(num_frames=3, min_vel=np.array([0.15, 0.0, 0.0]),
+              max_vel=np.array([0.3, 0.05, 0.05]))
+    for track, vel in tracks.items():
+        vel_t = torch.from_numpy(vel)
+        mag, ok = no_kernel_launched("synthetic_aperture", lambda: gpu_pipe(
+            *(p.to(device) for p in planes), vel_t.to(device)))
+        want_mag, want_ok = cpu_pipe(*planes, vel_t)
+        if not torch.equal(ok.cpu(), want_ok):
+            raise RuntimeError(f"synthetic aperture ({track}): gates differ")
+        n_ok = int(want_ok.sum())
+        if n_ok != (30 if track == "steady" else 24):
+            raise RuntimeError(f"synthetic aperture ({track}): {n_ok} frames pass the gate")
+        pipe_err = maps_agree(mag.cpu(), want_mag, MAP_RTOL, 1e-4, f"sa pipeline {track}")
+
+        errs = {"plain": 0.0, "calibrated_map": 0.0, "calibrated_geometry": 0.0,
+                "solve_for_the_cpus_picks": 0.0}
+        calibrated, solved, decided_apart = 0, 0, []
+        for cal in (False, True):
+            procs = [SyntheticArrayBeamformerProcessor(cfg, enable_calibration=cal, device=d,
+                                                       **kw) for d in (device, "cpu")]
+            for t in range(len(raw)):
+                outs = [p.process(raw[t], current_vel=vel[t]) for p in procs]
+                if procs[0].array_geometry_valid != procs[1].array_geometry_valid \
+                        or procs[1].array_geometry_valid != bool(want_ok[t]):
+                    raise RuntimeError(f"synthetic aperture processor ({track}, frame {t}): "
+                                       "gates differ")
+                if not procs[1].array_geometry_valid:
+                    continue
+                got, want = (torch.from_numpy(np.abs(o)) for o in outs)
+                if not cal:
+                    errs["plain"] = max(errs["plain"], maps_agree(
+                        got, want, MAP_RTOL, 1e-4, f"sa processor {track} frame {t}"))
+                    continue
+                # the reflectors each side steers at, from its own uncalibrated
+                # geometry and map: at a broad beam's flat top neighbouring
+                # azimuth bins tie to within rounding, and the sides may pick apart
+                targets = []
+                for p in procs:
+                    g = torch.from_numpy(p.array_geometry).to(p.device)
+                    targets.append(p.calibration_targets(p.state, g,
+                                                         p.compute_synthetic_response(p.state, g)))
+                picks = [(sorted(zip(tg.rng_idx.tolist(), tg.az_idx.tolist())), bool(tg.ok))
+                         for tg in targets]
+                # the GPU's solve for the CPU's picks, on the GPU's own state,
+                # within the golden's bars (a 3x2 least squares per element)
+                want_geo = procs[1].array_geometry_calibrated
+                if picks[1][1]:
+                    g = torch.from_numpy(procs[0].array_geometry).to(device)
+                    for_cpu_picks = procs[0].calibrate_to(procs[0].state, g, CalibrationTargets(
+                        *(x.to(device) for x in targets[1]))).cpu().numpy()
+                    errs["solve_for_the_cpus_picks"] = max(
+                        errs["solve_for_the_cpus_picks"], geometry_agrees(
+                            for_cpu_picks, want_geo, f"{track}, frame {t}, the CPU's picks"))
+                    solved += 1
+                if picks[0] != picks[1]:
+                    decided_apart.append((t, picks))
+                    continue
+                errs["calibrated_geometry"] = max(errs["calibrated_geometry"], geometry_agrees(
+                    procs[0].array_geometry_calibrated, want_geo, f"{track}, frame {t}"))
+                errs["calibrated_map"] = max(errs["calibrated_map"], maps_agree(
+                    got, want, 5e-3, 5e-3, f"calibrated sa {track} frame {t}"))
+                calibrated += int(np.abs(want_geo - procs[1].array_geometry).max() > 1e-6)
+        emit(phase="sa_slice", track=track, frames=len(raw), frames_passing=n_ok,
+             pipeline_max_abs_diff=pipe_err, map_max=float(want_mag.max()),
+             processor_max_abs_diff=errs, frames_calibrated=calibrated,
+             frames_solved_for_the_cpus_picks=solved,
+             calibration_picks_agreeing=n_ok - len(decided_apart),
+             calibration_picks_apart=decided_apart)
+        if calibrated == 0 or solved == 0:
+            raise RuntimeError(f"synthetic aperture ({track}): calibration never moved the geometry")
+        if n_ok - len(decided_apart) < MIN_CALIBRATION_AGREEMENT * n_ok:
+            raise RuntimeError(f"synthetic aperture ({track}): the calibration picks agree on "
+                               f"only {n_ok - len(decided_apart)} of {n_ok} frames")
+
+
 def time_altitude_track(pipeline, raw_re, raw_im):
     """The recursion kernel and its plain version on the ground path's own inputs, in turns.
 
@@ -1573,8 +1864,6 @@ def measure_ground_stages(ground, raw_re, raw_im):
     ``ground`` call under ``torch.profiler``: the device's busy share and the
     kernels that take the most device time.
     """
-    from torch.profiler import ProfilerActivity, profile
-
     raw = torch.complex(raw_re, raw_im)
     chirp0 = ground.loop0_chirps(raw)
     cand, valid = ground.peak_candidates(chirp0)
@@ -1592,20 +1881,111 @@ def measure_ground_stages(ground, raw_re, raw_im):
     for name, fn in stages.items():
         fn()
         ms[name] = cuda_ms(fn, 10)
+    emit(phase="ground_stages", frames=int(raw.shape[0]), stage_ms=ms,
+         stages_sum_ms=sum(ms.values()), **profiled_call(lambda: ground(raw_re, raw_im)))
+
+
+def profiled_call(fn):
+    """One call of ``fn`` under ``torch.profiler``: busy share, device time and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ground(raw_re, raw_im)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(getattr(e, "self_device_time_total", 0.0) or 0.0, e.key, e.count)
             for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))]
     kernel_us = sum(us for us, _, _ in rows)
-    emit(phase="ground_stages", frames=int(raw.shape[0]), stage_ms=ms,
-         stages_sum_ms=sum(ms.values()), device_busy_share_under_profiler=kernel_us / wall_us,
-         device_kernels=sum(n for _, _, n in rows), device_ms=kernel_us / 1e3,
-         top_kernels=[{"ms": us / 1e3, "launches": n, "name": key[:70]}
-                      for us, key, n in sorted(rows, reverse=True)[:8]])
+    return dict(device_busy_share_under_profiler=kernel_us / wall_us,
+                device_kernels=sum(n for _, _, n in rows), device_ms=kernel_us / 1e3,
+                top_kernels=[{"ms": us / 1e3, "launches": n, "name": key[:70]}
+                             for us, key, n in sorted(rows, reverse=True)[:8]])
+
+
+def measure_spectral_paths(cfg, device, raw_re, raw_im):
+    """The five new paths at full width: ms, peak memory and one profiled call each.
+
+    Batch 1024 of ``bench.py``'s planes for the spectral maps, the strip map
+    and DBS (velocities straddling the gate); one recording of T = 1024 of
+    the same planes for micro-Doppler (history 20) and synthetic aperture
+    (F = 3, 60 azimuth bins, a steady track so that the gate passes).
+    """
+    from mmwave_radar_processing_tpu_torch import (
+        build_dbs_pipeline, build_micro_doppler_pipeline, build_spectral_maps_pipeline,
+        build_strip_map_pipeline, build_synthetic_aperture_pipeline,
+    )
+
+    n = raw_re.shape[0]
+    vels = dbs_velocities(n).to(device)
+    track = torch.from_numpy(np.tile(SA_VEL, (n, 1)).astype(np.float32)).to(device)
+    maps = build_spectral_maps_pipeline(cfg, device=device)
+    md = build_micro_doppler_pipeline(cfg, num_frames_history=20, device=device)
+    strip = build_strip_map_pipeline(cfg, device=device)
+    dbs = build_dbs_pipeline(cfg, device=device)
+    sa = build_synthetic_aperture_pipeline(cfg, num_frames=3, device=device)
+    paths = {"spectral_maps": lambda: maps(raw_re, raw_im),
+             "micro_doppler": lambda: md(raw_re, raw_im),
+             "strip_map": lambda: strip(raw_re, raw_im),
+             "dbs": lambda: dbs(raw_re, raw_im, vels),
+             "synthetic_aperture": lambda: sa(raw_re, raw_im, track)}
+    if int(paths["synthetic_aperture"]()[1].sum()) != n - 2:
+        raise RuntimeError("the steady track does not pass the synthetic-aperture gate")
+    for name, fn in paths.items():
+        measure_path(name, fn, device, batch=n)
+        emit(phase="spectral_profile", path=name, batch=n, **profiled_call(fn))
+    measure_spectral_stages(maps, dbs, raw_re, raw_im, vels)
+
+
+def measure_spectral_stages(maps, dbs, raw_re, raw_im, vels):
+    """The two device-bound spectral paths' stages, each alone over 10 calls on its inputs.
+
+    The stages replay the pipelines' own buffers in the pipelines' order of
+    operations (``parallel/spectral_pipeline.py``); their sum is held
+    against the path's time by the reader, not here.
+    """
+    from mmwave_radar_processing_tpu_torch.ops.dft import cabs
+
+    rd_in, ra_in, da_in = maps._channels(raw_re, raw_im, (maps.rx_idx,), maps.ra_idx,
+                                         maps.da_idx)
+    chirp = ra_in[..., maps.chirp_idx] * maps.ra_window[:, None]
+    rng = maps.da_rng.transpose(0, 1) @ da_in
+    moved = torch.movedim(rng, 1, -1)
+    spec = maps.da_chirp.transpose(0, 1) @ moved
+    ang = spec @ maps.da_ant
+    stages = {
+        "complex_planes": lambda: torch.complex(raw_re, raw_im),
+        "channels": lambda: maps._channels(raw_re, raw_im, (maps.rx_idx,), maps.ra_idx,
+                                           maps.da_idx),
+        "range_doppler": lambda: cabs(maps.rd_rng.transpose(0, 1) @ rd_in[:, 0] @ maps.rd_dop),
+        "range_angle": lambda: cabs((chirp @ maps.ra_rng).transpose(1, 2) @ maps.ra_ant),
+        "da_range_dft": lambda: maps.da_rng.transpose(0, 1) @ da_in,
+        "da_move_and_chirp_dft": lambda: maps.da_chirp.transpose(0, 1) @ torch.movedim(rng, 1, -1),
+        "da_angle_dft": lambda: spec @ maps.da_ant,
+        "da_magnitude_and_mean": lambda: cabs(ang).mean(dim=1),
+    }
+    (sub,) = dbs._channels(raw_re, raw_im, dbs.rx_idx)
+    rd3 = dbs.rng.transpose(0, 1) @ sub @ dbs.dop
+    spec3 = torch.movedim(rd3, 1, -1) @ dbs.ang
+    ns = dbs.ns
+    stages.update({
+        "dbs_channels": lambda: dbs._channels(raw_re, raw_im, dbs.rx_idx),
+        "dbs_range_doppler_dft": lambda: dbs.rng.transpose(0, 1) @ sub @ dbs.dop,
+        "dbs_move_and_angle_dft": lambda: torch.movedim(rd3, 1, -1) @ dbs.ang,
+        "dbs_bins_gather_magnitude": lambda: cabs(spec3.reshape(len(sub), ns, -1).gather(
+            2, (dbs.doppler_bins(vels) * dbs.num_angle_bins + dbs.ang_near)[:, None, :]
+            .expand(-1, ns, -1))),
+        "dbs_plain_range_angle": lambda: cabs(((sub[..., dbs.chirp_idx] * dbs.ra_window[:, None])
+                                               @ dbs.ra_rng).transpose(1, 2) @ dbs.ra_ant),
+    })
+    ms = {}
+    for name, fn in stages.items():
+        fn()
+        ms[name] = cuda_ms(fn, 10)
+    emit(phase="spectral_stages", batch=int(raw_re.shape[0]), stage_ms=ms,
+         shapes={"da_chirp_dft_out": list(spec.shape), "da_angle_dft_out": list(ang.shape),
+                 "dbs_angle_dft_out": list(spec3.shape)})
 
 
 def noise_kernel_own_ops(geo, n_train, cells, batch):
@@ -1866,6 +2246,8 @@ def main():
     track_err = check_altitude_kernel(device)
     ground_launches = check_ground_slice(cfg, device)
     check_velocity_api(cfg, device)
+    check_spectral_slice(cfg, device, frames)
+    check_sa_slice(cfg, device)
 
     raw_re, raw_im, alts = bench_inputs(cfg, device)
     measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
@@ -1880,6 +2262,7 @@ def main():
     measure_path("ground_altitude", lambda: ground_altitude(raw_re, raw_im), device)
     track_ms = time_altitude_track(ground, raw_re, raw_im)
     measure_ground_stages(ground, raw_re, raw_im)
+    measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
     measure_detector_api(cfg, device, frames)
     cfar_ms = time_cfar(device)

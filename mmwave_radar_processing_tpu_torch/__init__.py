@@ -13,10 +13,12 @@ ego-velocity pipeline (coarse and precise), the combined pipeline, the
 Capon/Bartlett beamforming path (batched pipeline and per-frame processors),
 the detector API (CFAR threshold maps, the CFAR detector classes, the
 range and range-Doppler detectors, the altimeter and the point-cloud
-generator), the altimeter-gated ground scan, and the velocity object API
+generator), the altimeter-gated ground scan, the velocity object API
 (the Doppler-azimuth processor, the ADC-domain velocity estimator and the
-points estimators).  Every ``build_*`` function and class takes an explicit
-``device``.
+points estimators), and the spectral-map family (range-angle,
+micro-Doppler, strip-map SAR, DBS and synthetic-aperture processors and
+their batched pipelines).  Every ``build_*`` function and class takes an
+explicit ``device``.
 
 - ``config``, ``data``, ``utils.verify`` — configuration parsing and grids,
                       the scene simulator, seeded input frames.
@@ -44,13 +46,20 @@ points estimators).  Every ``build_*`` function and class takes an explicit
                       ``RangeDopplerProcessor``, ``Altimeter``,
                       ``RangeDetector``, the range-Doppler detectors,
                       ``PointCloudGenerator``, ``DopplerAzimuthProcessor``,
-                      ``VelocityEstimator`` and the Bartlett and Capon
-                      beamformer processors.
+                      ``VelocityEstimator``, the Bartlett and Capon
+                      beamformer processors, ``RangeAngleProcessor``,
+                      ``MicroDopplerProcessor``, ``StripMapSARProcessor``,
+                      ``RangeAngleProcessorDBSEnhanced`` and
+                      ``SyntheticArrayBeamformerProcessor``.
 - ``point_cloud_processing`` — ego velocity from points: ``VelocityEstimator``
                       and ``VehicleVelEstimator``.
 - ``parallel``      — ``build_point_cloud_pipeline``, ``build_velocity_pipeline``,
-                      ``build_full_pipeline``, ``build_capon_pipeline`` and
-                      ``build_ground_point_cloud_pipeline``, each an
+                      ``build_full_pipeline``, ``build_capon_pipeline``,
+                      ``build_ground_point_cloud_pipeline``,
+                      ``build_spectral_maps_pipeline``,
+                      ``build_micro_doppler_pipeline``,
+                      ``build_strip_map_pipeline``, ``build_dbs_pipeline`` and
+                      ``build_synthetic_aperture_pipeline``, each an
                       ``nn.Module``.
 
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
@@ -79,6 +88,21 @@ from mmwave_radar_processing_tpu_torch.parallel.pipeline import (
     load_reference_constants,
     set_full_fp32,
 )
+from mmwave_radar_processing_tpu_torch.parallel.beamform_pipeline import (
+    SyntheticAperturePipeline,
+    build_synthetic_aperture_pipeline,
+)
+from mmwave_radar_processing_tpu_torch.parallel.spectral_pipeline import (
+    DBSPipeline,
+    MicroDopplerPipeline,
+    SpectralMaps,
+    SpectralMapsPipeline,
+    StripMapPipeline,
+    build_dbs_pipeline,
+    build_micro_doppler_pipeline,
+    build_spectral_maps_pipeline,
+    build_strip_map_pipeline,
+)
 from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import (
     VelocityBatch,
     VelocityPipeline,
@@ -91,13 +115,19 @@ from mmwave_radar_processing_tpu_torch.processors import (
     AltimeterState,
     BartlettBeamformerProcessor,
     CaponBeamformerProcessor,
+    MicroDopplerProcessor,
     PointCloudGenerator,
+    RangeAngleProcessor,
+    RangeAngleProcessorDBSEnhanced,
     RangeDetector,
     RangeDopplerDetector2D,
     RangeDopplerDetectorSequential,
     RangeDopplerGroundDetector,
     RangeDopplerProcessor,
     RangeProcessor,
+    StripMapSARProcessor,
+    SyntheticArrayBeamformerProcessor,
+    SyntheticArrayState,
     VirtualArrayReformatter,
     get_range_doppler_detector_registry,
     load_detection_constants,
@@ -140,4 +170,21 @@ __all__ = [
     "get_range_doppler_detector_registry",
     "PointCloudGenerator",
     "load_detection_constants",
+    "SpectralMaps",
+    "SpectralMapsPipeline",
+    "MicroDopplerPipeline",
+    "StripMapPipeline",
+    "DBSPipeline",
+    "build_spectral_maps_pipeline",
+    "build_micro_doppler_pipeline",
+    "build_strip_map_pipeline",
+    "build_dbs_pipeline",
+    "SyntheticAperturePipeline",
+    "build_synthetic_aperture_pipeline",
+    "RangeAngleProcessor",
+    "MicroDopplerProcessor",
+    "StripMapSARProcessor",
+    "RangeAngleProcessorDBSEnhanced",
+    "SyntheticArrayBeamformerProcessor",
+    "SyntheticArrayState",
 ]

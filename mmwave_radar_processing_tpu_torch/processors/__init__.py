@@ -2,9 +2,10 @@
 
 Each processor is a config-bound object that holds its constants on an
 explicit ``device`` and whose ``process`` methods are plain tensor code.
-Stateless stages are functions of the ADC cube; the altimeter's tracked
-altitude is an explicit state with ``init_state()`` and a functional
-``step(state, ...) -> (state, out)``.
+Stateless stages are functions of the ADC cube; the stateful ones (the
+altimeter's tracked altitude, the micro-Doppler history, the
+synthetic-aperture ring buffers) are an explicit state with
+``init_state()`` and a functional ``step(state, ...) -> (state, out)``.
 """
 
 from mmwave_radar_processing_tpu_torch.processors.altimeter import (
@@ -14,6 +15,9 @@ from mmwave_radar_processing_tpu_torch.processors.altimeter import (
 from mmwave_radar_processing_tpu_torch.processors.beamforming import (
     BartlettBeamformerProcessor,
     CaponBeamformerProcessor,
+)
+from mmwave_radar_processing_tpu_torch.processors.dbs import (
+    RangeAngleProcessorDBSEnhanced,
 )
 from mmwave_radar_processing_tpu_torch.processors.detection import (
     Detections,
@@ -26,15 +30,28 @@ from mmwave_radar_processing_tpu_torch.processors.detection import (
 from mmwave_radar_processing_tpu_torch.processors.doppler_azimuth import (
     DopplerAzimuthProcessor,
 )
+from mmwave_radar_processing_tpu_torch.processors.micro_doppler import (
+    MicroDopplerProcessor,
+)
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     PointCloud,
     PointCloudGenerator,
     load_detection_constants,
 )
+from mmwave_radar_processing_tpu_torch.processors.range_angle import (
+    RangeAngleProcessor,
+)
 from mmwave_radar_processing_tpu_torch.processors.range_doppler import (
     RangeDopplerProcessor,
 )
 from mmwave_radar_processing_tpu_torch.processors.range_resp import RangeProcessor
+from mmwave_radar_processing_tpu_torch.processors.strip_map_sar import (
+    StripMapSARProcessor,
+)
+from mmwave_radar_processing_tpu_torch.processors.synthetic_array import (
+    SyntheticArrayBeamformerProcessor,
+    SyntheticArrayState,
+)
 from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
     VelocityEstimator,
 )
@@ -46,6 +63,8 @@ __all__ = [
     "VirtualArrayReformatter",
     "RangeProcessor",
     "RangeDopplerProcessor",
+    "RangeAngleProcessor",
+    "MicroDopplerProcessor",
     "Altimeter",
     "AltimeterState",
     "Detections",
@@ -61,4 +80,8 @@ __all__ = [
     "CaponBeamformerProcessor",
     "DopplerAzimuthProcessor",
     "VelocityEstimator",
+    "RangeAngleProcessorDBSEnhanced",
+    "StripMapSARProcessor",
+    "SyntheticArrayBeamformerProcessor",
+    "SyntheticArrayState",
 ]

@@ -27,6 +27,18 @@ def reformat(adc_cube: torch.Tensor, *, num_rx: int, cfgs_per_loop: int) -> torc
     return x.reshape(*batch, cfgs_per_loop * num_rx, ns, loops)
 
 
+def reformat_channels(adc_cube: torch.Tensor, *, channels, num_rx: int,
+                      cfgs_per_loop: int) -> torch.Tensor:
+    """Virtual channels ``channels`` only: ``[..., len(channels), sample, loops]``.
+
+    Equal to ``reformat(...)[..., channels, :, :]``, built from strided chirp
+    slices of the raw cube (``v = cfg*num_rx + rx`` is ``raw[rx, :,
+    cfg::cfgs_per_loop]``), so the full virtual cube is never made.
+    """
+    return torch.stack([adc_cube[..., v % num_rx, :, v // num_rx::cfgs_per_loop]
+                        for v in channels], dim=-3)
+
+
 class VirtualArrayReformatter(Processor):
     """Object facade matching the reference's ``VirtualArrayReformatter`` API."""
 

@@ -27,12 +27,24 @@ from mmwave_radar_processing_tpu_torch import (
     build_point_cloud_pipeline,
     build_velocity_pipeline,
 )
+from mmwave_radar_processing_tpu_torch.parallel import (
+    build_dbs_pipeline,
+    build_micro_doppler_pipeline,
+    build_spectral_maps_pipeline,
+    build_strip_map_pipeline,
+    build_synthetic_aperture_pipeline,
+)
 from mmwave_radar_processing_tpu_torch.point_cloud_processing import (
     VehicleVelEstimator,
     VelocityEstimator as PointsVelocityEstimator,
 )
 from mmwave_radar_processing_tpu_torch.processors import (
     DopplerAzimuthProcessor,
+    MicroDopplerProcessor,
+    RangeAngleProcessor,
+    RangeAngleProcessorDBSEnhanced,
+    StripMapSARProcessor,
+    SyntheticArrayBeamformerProcessor,
     VelocityEstimator,
 )
 
@@ -102,12 +114,31 @@ from mmwave_radar_processing_tpu_torch.point_cloud_processing import (
 cloud = pts.astype(np.float64)
 assert PointsVE(cfg, device="cpu").process(points=cloud).shape == (3,)
 VehicleVelEstimator(device="cpu").estimate_ego_vel(cloud)
+# the spectral-map family: processors on one frame, the builders on the batch
+assert port.RangeAngleProcessor(cfg, device="cpu").process(virt).shape == (63, 64)
+md = port.MicroDopplerProcessor(cfg, device="cpu")
+assert md.process(virt).shape == (70, 20) and md.scan(virt[None])[1].shape == (1, 70, 20)
+assert port.StripMapSARProcessor(cfg, device="cpu").process(
+    torch.complex(re_t, im_t)[0], vel_m_per_s=0.25).size > 0
+dbs = port.RangeAngleProcessorDBSEnhanced(cfg, device="cpu")
+assert dbs.process(virt, velocity_ned=[0.5, 0.2, 0.0]).shape == (63, 64)
+sa = port.SyntheticArrayBeamformerProcessor(cfg, device="cpu")
+assert sa.process(torch.complex(re_t, im_t)[0], current_vel=[0.2, 0.0, 0.0]).shape == (0,)
+maps = port.build_spectral_maps_pipeline(cfg, device="cpu")(re_t, im_t)
+assert maps.range_angle.shape == (1, 63, 64) and bool(torch.isfinite(maps.doppler_azimuth).all())
+assert port.build_micro_doppler_pipeline(cfg, device="cpu")(re_t, im_t).shape == (1, 70, 20)
+assert port.build_strip_map_pipeline(cfg, device="cpu")(re_t, im_t).shape == (1, 63, 70)
+assert port.build_dbs_pipeline(cfg, device="cpu")(
+    re_t, im_t, torch.tensor([[0.5, 0.2, 0.0]])).shape == (1, 63, 100)
+mag, ok = port.build_synthetic_aperture_pipeline(cfg, device="cpu")(
+    re_t, im_t, torch.tensor([[0.2, 0.0, 0.0]]))
+assert mag.shape == (1, 63, 60, 1) and not bool(ok[0])
 # every module of the port, found by walking the package
 import importlib, pkgutil
 walked = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in walked:
     importlib.import_module(name)
-assert len(walked) >= 42, walked
+assert len(walked) >= 49, walked
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 jax_package = sorted(m for m in sys.modules if m == "mmwave_radar_processing_tpu"
@@ -199,6 +230,23 @@ DETECTOR_API = {
     "VehicleVelEstimator": lambda cfg, **kw: VehicleVelEstimator(**kw),
 }
 
+SPECTRAL_API = {
+    "RangeAngleProcessor": lambda cfg, **kw: RangeAngleProcessor(cfg, **kw),
+    "MicroDopplerProcessor": lambda cfg, **kw: MicroDopplerProcessor(cfg, **kw),
+    "StripMapSARProcessor": lambda cfg, **kw: StripMapSARProcessor(cfg, **kw),
+    "RangeAngleProcessorDBSEnhanced": lambda cfg, **kw: RangeAngleProcessorDBSEnhanced(cfg, **kw),
+    "SyntheticArrayBeamformerProcessor": lambda cfg, **kw: SyntheticArrayBeamformerProcessor(
+        cfg, **kw),
+    "build_spectral_maps_pipeline": lambda cfg, **kw: build_spectral_maps_pipeline(
+        cfg, **kw).rd_rng,
+    "build_micro_doppler_pipeline": lambda cfg, **kw: build_micro_doppler_pipeline(
+        cfg, **kw).rng,
+    "build_strip_map_pipeline": lambda cfg, **kw: build_strip_map_pipeline(cfg, **kw).rng,
+    "build_dbs_pipeline": lambda cfg, **kw: build_dbs_pipeline(cfg, **kw).rng,
+    "build_synthetic_aperture_pipeline": lambda cfg, **kw: build_synthetic_aperture_pipeline(
+        cfg, **kw).rng_dft,
+}
+
 
 @pytest.mark.parametrize("name", list(DETECTOR_API))
 def test_detector_api_needs_a_device_and_raises_without_a_gpu(flagship_config, name):
@@ -209,3 +257,14 @@ def test_detector_api_needs_a_device_and_raises_without_a_gpu(flagship_config, n
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DETECTOR_API[name](flagship_config, device="cuda")
+
+
+@pytest.mark.parametrize("name", list(SPECTRAL_API))
+def test_spectral_api_needs_a_device_and_raises_without_a_gpu(flagship_config, name):
+    with pytest.raises(TypeError):
+        SPECTRAL_API[name](flagship_config)  # no implicit default device
+    assert SPECTRAL_API[name](flagship_config, device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SPECTRAL_API[name](flagship_config, device="cuda")
