@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API and spectral-map paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map and recording paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ failure (exit code != 0):
 1. environment: a CUDA device, the card's name and power limit
    (``nvidia-smi``), the pipelines built on it with TF32 off;
 2. build: ``nvcc`` compiles every kernel source in ``csrc/``, one process
-   each, started together (timed; ptxas registers and spills printed);
+   each, and ``g++`` the NPY loader (``native/npy_loader.cpp``), all started
+   together (timed; ptxas registers and spills printed);
 3. CFAR kernel: its mask equals its plain PyTorch version's, bit for bit, on
    quantized exponential maps (ties forced) at B in {1, 7, 1024} of 63x70,
    at the flagship CFAR geometry and six others (a zero guard, a 3-column
@@ -143,7 +144,40 @@ failure (exit code != 0):
    micro-Doppler (history 20) and synthetic aperture (F = 3) on a recording
    of T = 1024, on ``bench.py``'s planes, with peak memory; one call of each
    profiled (busy share, top kernels); the spectral-maps and DBS stages
-   timed alone.
+   timed alone;
+21. recording slice: a CPSL recording of 40 simulated ground frames (the
+   altitude rising gradually from 0.55 m to 1.2 m and back, odometry beside
+   it) written by the port's ``write_dataset``; the NPY loader built on this
+   host equals its numpy reader bit for bit on it; then
+   ``parallel.recording.process_recording`` serves it at batch 16 (two full
+   batches and a tail of 8) in each mode (``2d``: the combined pipeline;
+   ``points``; ``ground``, the altitude carried across batches) on the GPU,
+   pinned slots and a copy stream, and on the CPU port: valid identical;
+   every point's range and velocity within ``POINTS_ATOL``, and the points
+   whose direction differs by an angle bin (a near-tie of the angle spectrum
+   rounded apart) at most ``MAX_ANGLE_FLIP_SHARE`` of them;
+   ``compare_outputs`` at its raised gates;
+   velocity (same draws) ``vx`` within ``VX_ATOL`` on every frame and within
+   ``VELOCITY_ATOL`` on all but one; the altitude within ``ALTITUDE_ATOL`` on
+   every frame; the detection kernel (``2d``, ``points``), the response
+   kernel (``2d``) and the recursion kernel (``ground``) launched once a
+   batch;
+22. velocity analysis: ``analysis.analyze_velocity`` (the per-frame flow of
+   ``scripts/torch_test_vel_estimation.py``, the analyzer configuration's
+   ground detector and points estimator) over 16 frames of that recording
+   on the GPU and on the CPU with the same draws: estimates and the
+   analyzer's summary numbers within ``VELOCITY_ATOL``; the k-th-smallest
+   kernel launched at least once a frame;
+23. recording throughput: 4,196 standard-normal complex64 frames (seed 0,
+   423,488 bytes a file; ~1.78 GB in a temporary directory, deleted after)
+   served in each mode at batch 1024 with 8 loader threads after a warm-up
+   run: frames/s end to end, the loader's, copy's and compute's ms for 1024
+   frames, the streams' busy share, peak device memory and pinned bytes,
+   one run profiled; beside it the same batches from device memory, whose
+   outputs the runner's must equal, and the loader alone on 1024 files at
+   1, 2, 4 and 8 threads beside its numpy reader.  The files were just
+   written, so they are read from the page cache: disk reads are not
+   measured.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -164,6 +198,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -255,9 +290,43 @@ MIN_DBS_BIN_AGREEMENT = 0.99
 # of 54 frames of the recording, the GPU and the CPU port on 24 of 30): a
 # sanity bar, the solve itself is held on every frame
 MIN_CALIBRATION_AGREEMENT = 0.5
+#: recording slice, GPU vs CPU port, on ground frames: the points whose
+#: direction differs by an angle bin (a near-tie of the angle spectrum that
+#: cuBLAS and the CPU round apart; range and velocity still within
+#: POINTS_ATOL), at most this share of the valid points
+MAX_ANGLE_FLIP_SHARE = 0.01
 SA_FRAMES = 32
 SA_VEL = (0.2, 0.01, 0.0)
 RANSAC_SEED = 0
+#: the recording phases: a simulated CPSL recording served at batch 16 (two
+#: full batches and a tail of 8), and a recording of 4,196 frames (four
+#: batches of 1024 and a tail of 100, ~3.5 minutes at 20 Hz) at batch 1024
+RECORDING_FRAMES, RECORDING_BATCH = 40, 16
+RECORDING_EGO = (0.8, 0.3, -0.1)
+RECORDING_MODES = ("2d", "points", "ground")
+#: the hand-written kernels each mode launches once a batch
+RECORDING_KERNELS = {"2d": ("os_cfar_2d_detect", "doppler_az_responses"),
+                     "points": ("os_cfar_2d_detect",), "ground": ("altitude_track",)}
+THROUGHPUT_FRAMES, THROUGHPUT_BATCH, LOADER_THREADS = 4196, 1024, 8
+VELOCITY_ANALYSIS_FRAMES = 16
+#: analyzer_configs/velocity_analysis_config.yaml, as this script reads no YAML
+VELOCITY_ANALYSIS_PARAMS = {
+    "processors": {
+        "velocity_estimator": {"min_r2_threshold": 0.2, "min_inlier_percent": 0.5},
+        "point_cloud_generator": {
+            "detector_type": "range_doppler_ground_detector",
+            "detector_params": {
+                "vel_cfar_type": "os_cfar_1d",
+                "vel_cfar_params": {"num_train": 5, "num_guard": 2, "rho": 0.6, "alpha": 4},
+                "altimeter_params": {"min_altitude_m": 25.0e-2, "zoom_search_region_m": 20.0e-2,
+                                     "altitude_search_limit_m": 40.0e-2, "range_bias": 0.0,
+                                     "precise_est_enabled": True}},
+            "az_antenna_idxs": [0, 3, 4, 7], "el_antenna_idxs": [9, 8, 5, 4],
+            "shift_az_resp": True, "shift_el_resp": False},
+    },
+    "analysis": {"start_idx": 0, "end_idx": 10000, "error_method": "signed"},
+    "transformation": {"uav_vel_matrix": np.eye(3).tolist(), "gt_vel_matrix": np.eye(3).tolist()},
+}
 
 
 def emit(**fields):
@@ -2151,8 +2220,337 @@ def measure_detector_api(cfg, device, frames, n_frames=256):
                           for us, key, _ in sorted(rows, reverse=True)[:3]])
 
 
+def write_recording_slice(cfg, root, frames=RECORDING_FRAMES, seed=12):
+    """A CPSL recording of simulated ground frames: the altitude rises from 0.55 m to 1.2 m and back; odometry beside it."""
+    from mmwave_radar_processing_tpu_torch.data import (
+        CpslDS, ground_scene, make_odom_rows, simulate_frame, write_dataset,
+    )
+
+    rng = np.random.default_rng(seed)
+    raws = []
+    for i in range(frames):
+        alt = 0.55 + 0.65 * np.sin(np.pi * i / (frames - 1))
+        scene = ground_scene(cfg, altitude_m=alt, ego_vel=np.array(RECORDING_EGO),
+                             num_patches=200, rng=rng, noise_sigma=0.01)
+        raws.append(simulate_frame(cfg, scene, rng))
+    write_dataset(root, np.stack(raws),
+                  odom=np.stack([make_odom_rows(RECORDING_EGO)] * frames))
+    return CpslDS(root)
+
+
+def recording_point_cloud(out):
+    """A recording runner's ``points`` / ``valid`` as a ``PointCloudBatch`` of CPU tensors."""
+    from mmwave_radar_processing_tpu_torch import PointCloudBatch
+
+    valid = torch.from_numpy(out["valid"])
+    return PointCloudBatch(torch.from_numpy(out["points"]), valid,
+                           valid.sum(1, dtype=torch.int32))
+
+
+def point_cloud_agreement(gpu, cpu):
+    """How two recording runs' point clouds (same ``valid``) agree, point by point.
+
+    A point is apart when a coordinate differs by more than ``POINTS_ATOL``.
+    Where two angle bins of a detection's spectrum tie to within rounding,
+    cuBLAS and the CPU may pick different ones: the point's direction moves
+    by a bin while its range (the norm of x, y, z) and its velocity do not
+    (``compare_outputs`` calls this an angle flip).
+    """
+    valid = cpu["valid"]
+    apart = valid & (np.abs(gpu["points"] - cpu["points"]).max(-1) > POINTS_ATOL)
+    rng_err = np.abs(np.linalg.norm(gpu["points"][..., :3], axis=-1)
+                     - np.linalg.norm(cpu["points"][..., :3], axis=-1))[valid]
+    vel_err = np.abs(gpu["points"][..., 3] - cpu["points"][..., 3])[valid]
+    return dict(points_max_abs_diff=float(np.abs(gpu["points"] - cpu["points"]).max()),
+                points_atol=POINTS_ATOL, points_valid=int(valid.sum()),
+                points_apart=int(apart.sum()),
+                frames_points_within_atol=int((~apart).all(1).sum()),
+                range_max_abs_diff=float(rng_err.max(initial=0.0)),
+                velocity_max_abs_diff=float(vel_err.max(initial=0.0)))
+
+
+def check_recording_slice(cfg, device, dataset):
+    """The recording runner on the GPU vs on the CPU port, in its three modes; returns launches by mode.
+
+    The native loader built on this host first equals its plain version bit
+    for bit.  Each mode then serves the recording at batch 16 on both sides
+    (the velocity with the same RANSAC draws); every mode's kernels launch
+    once a batch.  Comparing outputs also shows that no pinned slot was
+    refilled while its copy to the device was in flight.
+    """
+    from mmwave_radar_processing_tpu_torch.data import native_loader
+    from mmwave_radar_processing_tpu_torch.parallel.recording import (
+        build_recording_pipeline, process_recording,
+    )
+    from mmwave_radar_processing_tpu_torch.utils.profiling import StageTimer
+
+    paths = dataset._files["radar_adc"]
+    n, batch = len(paths), RECORDING_BATCH
+    shape = (cfg.num_rx_antennas, cfg.num_adc_samples, cfg.chirps_per_frame)
+    native = native_loader.load_frames_split(paths, shape, LOADER_THREADS)
+    plain = native_loader.load_frames_split(paths, shape, backend="numpy")
+    if not (torch.equal(native[0], plain[0]) and torch.equal(native[1], plain[1])):
+        raise RuntimeError("the native loader differs from its numpy reader")
+    emit(phase="recording_loader", frames=n, bit_equal_to_numpy_reader=True,
+         library=os.path.relpath(native_loader.library_path(), HERE))
+
+    batches = -(-n // batch)
+    wrappers = kernel_wrappers()
+    launches = {}
+    for mode in RECORDING_MODES:
+        cpu_pipe = build_recording_pipeline(cfg, mode, device="cpu")
+        gpu_pipe = build_recording_pipeline(cfg, mode, device=device)
+        gumbel = (cpu_pipe.velocity.draw_gumbel(batch, torch.Generator().manual_seed(RANSAC_SEED))
+                  if mode == "2d" else None)
+        kw = dict(mode=mode, batch=batch, gumbel=gumbel)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        timer = StageTimer()
+        gpu = process_recording(dataset, cfg, device=device, pipeline=gpu_pipe, timer=timer,
+                                loader_threads=LOADER_THREADS, **kw)
+        torch.cuda.synchronize()
+        launches[mode] = {name: w.launches for name, w in wrappers.items() if w.launches}
+        cpu = process_recording(dataset, cfg, device="cpu", pipeline=cpu_pipe,
+                                backend="numpy", **kw)
+        if sorted(gpu) != sorted(cpu) or any(
+                gpu[k].shape != cpu[k].shape or gpu[k].dtype != cpu[k].dtype for k in cpu):
+            raise RuntimeError(f"recording ({mode}): outputs differ in keys, shapes or dtypes")
+        frames_identical = int((gpu["valid"] == cpu["valid"]).all(1).sum())
+        agreement = point_cloud_agreement(gpu, cpu)
+        fields = dict(phase="recording_slice", mode=mode, frames=n, batch=batch,
+                      batches=batches, launches=launches[mode],
+                      frames_identical_valid=frames_identical, **agreement,
+                      mean_count=float(gpu["valid"].sum(1).mean()),
+                      stage_s={k: timer.totals[k] for k in sorted(timer.totals)})
+        if mode == "2d":
+            vel_err = np.abs(gpu["velocity"] - cpu["velocity"])
+            fields.update(vx_max_abs_diff=float(vel_err[:, 2].max()),
+                          velocity_max_abs_diff=float(vel_err.max()),
+                          frames_velocity_agreeing=int((vel_err.max(1) <= VELOCITY_ATOL).sum()),
+                          vy_nonzero=int(np.count_nonzero(cpu["velocity"][:, :2])))
+        if mode == "ground":
+            fields.update(altitude_max_abs_diff_m=float(
+                np.abs(gpu["altitude"] - cpu["altitude"]).max()),
+                track_min_m=float(cpu["altitude"].min()), track_max_m=float(cpu["altitude"].max()))
+        emit(**fields)
+        missed = {k: launches[mode].get(k, 0) for k in RECORDING_KERNELS[mode]
+                  if launches[mode].get(k, 0) != batches}
+        if missed:
+            raise RuntimeError(f"recording ({mode}): kernels launched {missed} times, "
+                               f"expected once a batch ({batches})")
+        if frames_identical != n:
+            raise RuntimeError(f"recording ({mode}): valid identical on only "
+                               f"{frames_identical} of {n} frames")
+        if not (agreement["range_max_abs_diff"] <= POINTS_ATOL
+                and agreement["velocity_max_abs_diff"] <= POINTS_ATOL
+                and agreement["points_apart"] <= MAX_ANGLE_FLIP_SHARE * agreement["points_valid"]):
+            raise RuntimeError(f"recording ({mode}): points differ from the CPU port's: "
+                               f"{agreement}")
+        if int(gpu["valid"].sum()) == 0:
+            raise RuntimeError(f"recording ({mode}): no detections: a vacuous check")
+        if not np.isfinite(gpu["points"]).all():
+            raise RuntimeError(f"recording ({mode}): non-finite points on the GPU")
+        raised_gates(f"recording_{mode}", recording_point_cloud(cpu), recording_point_cloud(gpu))
+        if mode == "2d":
+            if not fields["vx_max_abs_diff"] <= VX_ATOL:
+                raise RuntimeError(f"recording (2d): vx differs by {fields['vx_max_abs_diff']}")
+            if fields["frames_velocity_agreeing"] < n - 1:
+                raise RuntimeError(f"recording (2d): velocity agrees on only "
+                                   f"{fields['frames_velocity_agreeing']} of {n} frames")
+            if fields["vy_nonzero"] == 0 or not np.isfinite(gpu["velocity"]).all():
+                raise RuntimeError("recording (2d): no velocity fit passed: a vacuous check")
+        if mode == "ground":
+            if not fields["altitude_max_abs_diff_m"] <= ALTITUDE_ATOL:
+                raise RuntimeError(f"recording (ground): altitude differs by "
+                                   f"{fields['altitude_max_abs_diff_m']}")
+            if not fields["track_max_m"] - fields["track_min_m"] > 0.3:
+                raise RuntimeError("recording (ground): the track never followed the profile")
+    return launches
+
+
+def check_velocity_analysis(cfg, device, dataset, frames=VELOCITY_ANALYSIS_FRAMES):
+    """The per-frame velocity-analysis flow on the GPU vs the CPU port; returns ``kth_smallest`` launches.
+
+    Both sides draw their RANSAC scores from a CPU generator seeded alike.
+    The ground detector's 1D OS-CFAR (``os_1d``) reaches the k-th-smallest
+    kernel at least once a frame.
+    """
+    from mmwave_radar_processing_tpu_torch.analysis import VelocityAnalyzer, analyze_velocity
+    from mmwave_radar_processing_tpu_torch.ops.kernels.rank_select import kth_smallest
+
+    kw = dict(start=0, end=frames)
+    torch.cuda.synchronize()
+    kth_smallest.launches = 0
+    t0 = time.perf_counter()
+    got, gt = analyze_velocity(dataset, cfg, VELOCITY_ANALYSIS_PARAMS, device=device, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kth_smallest.launches
+    want, want_gt = analyze_velocity(dataset, cfg, VELOCITY_ANALYSIS_PARAMS, device="cpu", **kw)
+    summaries = []
+    for est, truth in ((got, gt), (want, want_gt)):
+        analyzer = VelocityAnalyzer()
+        analyzer.analyze(est, truth, error_method="signed")
+        summaries.append(np.array([list(analyzer.compute_summary_statistics(e).values())
+                                   for e in (analyzer.get_x_errors(), analyzer.get_y_errors(),
+                                             analyzer.get_z_errors(),
+                                             analyzer.get_norm_errors())]))
+    est_err = float(np.abs(got - want).max())
+    summary_err = float(np.abs(summaries[0] - summaries[1]).max())
+    emit(phase="velocity_analysis", frames=frames, kth_smallest_launches=launches,
+         estimates_max_abs_diff=est_err, summary_max_abs_diff=summary_err,
+         atol=VELOCITY_ATOL, vx_nonzero=int(np.count_nonzero(got[:, 0])),
+         norm_error_mean=float(summaries[0][3, 0]), ms_per_frame=seconds / frames * 1e3)
+    if launches < frames:
+        raise RuntimeError(f"velocity analysis: kth_smallest launched {launches} times "
+                           f"over {frames} frames")
+    if not (np.array_equal(gt, want_gt) and est_err <= VELOCITY_ATOL
+            and summary_err <= VELOCITY_ATOL):
+        raise RuntimeError(f"velocity analysis: estimates differ by {est_err}, "
+                           f"summaries by {summary_err}")
+    if np.count_nonzero(got[:, 0]) < frames // 2 or not np.isfinite(got).all():
+        raise RuntimeError("velocity analysis: too few estimates: a vacuous check")
+    return launches
+
+
+def write_noise_recording(root, frames=THROUGHPUT_FRAMES, seed=0, chunk=1024,
+                          shape=(4, 63, 210)):
+    """Standard-normal complex64 frames (``bench.py``'s kind of input) from ``seed``, one NPY file each."""
+    folder = os.path.join(root, "radar_0_adc")
+    os.makedirs(folder)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for first in range(0, frames, chunk):
+        count = min(chunk, frames - first)
+        re = rng.standard_normal((count, *shape), dtype=np.float32)
+        im = rng.standard_normal((count, *shape), dtype=np.float32)
+        cube = re + 1j * im.astype(np.complex64)
+        for i in range(count):
+            paths.append(os.path.join(folder, f"frame_{first + i:05d}.npy"))
+            np.save(paths[-1], cube[i])
+    return paths
+
+
+def in_memory_run(pipe, mode, re_d, im_d, batch):
+    """The recording's batches from device memory through ``pipe``: what the runner computes, without its feed."""
+    alts = torch.full((batch,), 1.2, device=re_d.device)
+    outs, carry = [], None
+    for i in range(0, re_d.shape[0], batch):
+        re_b, im_b = re_d[i:i + batch], im_d[i:i + batch]
+        if mode == "2d":
+            pc, vel = pipe(re_b, im_b, alts[:re_b.shape[0]])
+            outs.append((pc.points, pc.valid, vel.velocity))
+        elif mode == "points":
+            pc = pipe(re_b, im_b)
+            outs.append((pc.points, pc.valid))
+        else:
+            out = pipe(re_b, im_b, init_altitude=carry)
+            carry = out.final_altitude
+            outs.append((out.points, out.valid, out.altitude))
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def time_loader(paths, shape):
+    """The NPY loader alone on the first 1024 files: ms with 1, 2, 4 and 8 threads, and its numpy reader."""
+    from mmwave_radar_processing_tpu_torch.data import native_loader
+
+    chunk = paths[:THROUGHPUT_BATCH]
+    out = tuple(torch.empty((len(chunk), *shape), pin_memory=True) for _ in range(2))
+    ms = {}
+    for threads in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        native_loader.load_frames_split(chunk, shape, threads, out=out)
+        ms[f"native_{threads}_threads"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native_loader.load_frames_split(chunk, shape, out=out, backend="numpy")
+    ms["numpy_reader"] = (time.perf_counter() - t0) * 1e3
+    return ms
+
+
+def measure_recording_throughput(cfg, device):
+    """Each mode served from a 4,196-frame recording at batch 1024, beside the same batches in device memory.
+
+    The files are written just before, so they are read from the page cache:
+    disk reads are not measured.  Per mode: end-to-end frames/s, the loader's,
+    copy's and compute's ms for 1024 frames, the streams' busy share, peak
+    device memory (the runner's alone) and the pinned bytes; one run
+    profiled; then, with the recording held in device memory, the same
+    batches' ms and outputs, which must equal the runner's.  The loader is
+    also timed alone at 1 to 8 threads, beside its numpy reader.
+    """
+    from mmwave_radar_processing_tpu_torch.data import native_loader
+    from mmwave_radar_processing_tpu_torch.parallel.recording import (
+        build_recording_pipeline, process_recording,
+    )
+    from mmwave_radar_processing_tpu_torch.utils.profiling import StageTimer
+
+    shape = (cfg.num_rx_antennas, cfg.num_adc_samples, cfg.chirps_per_frame)
+    batch, n = THROUGHPUT_BATCH, THROUGHPUT_FRAMES
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recording_") as root:
+        t0 = time.perf_counter()
+        paths = write_noise_recording(root, shape=shape)
+        write_s = time.perf_counter() - t0
+        file_bytes = sum(os.path.getsize(p) for p in paths)
+        emit(phase="recording_loader_alone", files=THROUGHPUT_BATCH,
+             bytes=file_bytes * THROUGHPUT_BATCH // n, ms=time_loader(paths, shape))
+        runs = {}
+        for mode in RECORDING_MODES:
+            pipe = build_recording_pipeline(cfg, mode, device=device)
+            kw = dict(mode=mode, batch=batch, loader_threads=LOADER_THREADS, device=device,
+                      pipeline=pipe)
+            process_recording(paths, cfg, **kw)  # warm-up: every shape, the allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            timer = StageTimer()
+            out = process_recording(paths, cfg, timer=timer, **kw)
+            peak_mb = torch.cuda.max_memory_allocated(device) / 1e6
+            profiled = profiled_call(lambda: process_recording(paths, cfg, **kw))
+            runs[mode] = (pipe, out, timer, peak_mb, profiled)
+
+        host = native_loader.load_frames_split(paths, shape, LOADER_THREADS)
+        re_d, im_d = (t.to(device) for t in host)
+        del host
+        for mode, (pipe, out, timer, peak_mb, profiled) in runs.items():
+            wall = timer.totals["wall"]
+
+            def per_1024(stage):
+                return timer.totals[stage] / timer.items[stage] * 1024 * 1e3
+
+            mem = [t.cpu().numpy() for t in in_memory_run(pipe, mode, re_d, im_d, batch)]
+            keys = {"2d": ("points", "valid", "velocity"), "points": ("points", "valid"),
+                    "ground": ("points", "valid", "altitude")}[mode]
+            diffs = {k: float(np.abs(out[k].astype(np.float64) - m.astype(np.float64)).max())
+                     for k, m in zip(keys, mem)}
+            mem_ms = cuda_ms(lambda: in_memory_run(pipe, mode, re_d, im_d, batch), 3)
+            pinned = (2 * 2 * batch * int(np.prod(shape)) * 4
+                      + sum(a.nbytes for a in out.values()))
+            emit(phase="recording_throughput", mode=mode, frames=n, batch=batch,
+                 loader_threads=LOADER_THREADS, file_bytes=file_bytes,
+                 files="written just before: read from the page cache, disk reads not measured",
+                 frames_per_s=n / wall, wall_ms=wall * 1e3,
+                 load_ms_per_1024=per_1024("load"),
+                 load_wait_ms_per_1024=per_1024("load_wait"),
+                 h2d_ms_per_1024=per_1024("h2d"), compute_ms_per_1024=per_1024("compute"),
+                 device_busy_share=timer.totals["device_busy"] / wall,
+                 peak_mem_mb=peak_mb, pinned_mb=pinned / 1e6,
+                 in_memory_ms=mem_ms, in_memory_frames_per_s=n / (mem_ms / 1e3),
+                 in_memory_max_abs_diff=diffs, write_s=write_s,
+                 profiled_busy_share=profiled["device_busy_share_under_profiler"],
+                 profiled_device_ms=profiled["device_ms"],
+                 profiled_kernels=profiled["device_kernels"],
+                 top_kernels=profiled["top_kernels"][:4])
+            if not (diffs["valid"] == 0 and diffs["points"] <= POINTS_ATOL
+                    and diffs.get("velocity", 0.0) <= VELOCITY_ATOL
+                    and diffs.get("altitude", 0.0) <= 1e-6):
+                raise RuntimeError(f"recording throughput ({mode}): the runner's outputs differ "
+                                   f"from the same batches in device memory: {diffs}")
+        del re_d, im_d
+
+
 def build_kernels():
-    """``nvcc`` for each kernel source, all started together; emits each build."""
+    """``nvcc`` for each kernel source and ``g++`` for the NPY loader, all started together; emits each build."""
+    from mmwave_radar_processing_tpu_torch.data import native_loader
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
     names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select",
@@ -2163,14 +2561,22 @@ def build_kernels():
         lib = _build.build(name)
         return lib, time.perf_counter() - t0
 
+    def loader():
+        t0 = time.perf_counter()
+        lib = native_loader.build()
+        return lib, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        loader_build = pool.submit(loader)  # the recording feed's g++ build, beside nvcc's
         built = dict(zip(names, pool.map(timed, names)))
     for name, (lib, seconds) in built.items():
         emit(phase="build", kernel=name, seconds=seconds,
              library=os.path.relpath(lib, HERE),
              ptxas=[ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
                     if "registers" in ln or "spill" in ln])
+    lib, seconds = loader_build.result()
+    emit(phase="build", native_loader=os.path.relpath(lib, HERE), seconds=seconds)
     emit(phase="build", wall_seconds=time.perf_counter() - t0)
 
 
@@ -2248,6 +2654,10 @@ def main():
     check_velocity_api(cfg, device)
     check_spectral_slice(cfg, device, frames)
     check_sa_slice(cfg, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slice_") as root:
+        recording = write_recording_slice(cfg, root)
+        rec_launches = check_recording_slice(cfg, device, recording)
+        analysis_launches = check_velocity_analysis(cfg, device, recording)
 
     raw_re, raw_im, alts = bench_inputs(cfg, device)
     measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
@@ -2264,6 +2674,7 @@ def main():
     measure_ground_stages(ground, raw_re, raw_im)
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
+    measure_recording_throughput(cfg, device)
     measure_detector_api(cfg, device, frames)
     cfar_ms = time_cfar(device)
     resp_ms = time_responses(velocity, device)
@@ -2290,11 +2701,14 @@ def main():
     # of the velocity and combined runs, #5 the precise run (its zoom pass
     # and its coarse pass), #6 the same kernel in the paired layout, which
     # the main path does not use: its count is the kernel's over all runs
-    all_resp = vel_launches["coarse"] + vel_launches["precise"] + comb_launches[1]
+    # the recording slice's launches join those of the paths it serves through
+    rec_cfar = sum(rec_launches[m].get("os_cfar_2d_detect", 0) for m in RECORDING_MODES)
+    rec_resp = rec_launches["2d"].get("doppler_az_responses", 0)
+    all_resp = vel_launches["coarse"] + vel_launches["precise"] + comb_launches[1] + rec_resp
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": launches + comb_launches[0],
+         "replaces": KERNEL_REPLACES, "launches": launches + comb_launches[0] + rec_cfar,
          # the paths launch its compacting entry, whose times these are; the
          # mask entry's (the detector classes' and the cross-check's) are under "mask_entry"
          "max_abs_err": max_err, **cfar_ms},
@@ -2302,10 +2716,10 @@ def main():
         # at the ground detector's width (its times at [168448, 220] are
         # under "wide")
         rank_entry("os_cfar_2d_noise", rank_launches["noise"], noise_err, noise_ms),
-        rank_entry("kth_smallest", rank_launches["kth"], kth_err,
+        rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches, kth_err,
                    {**kth_ms["narrow"], "wide": kth_ms["wide"]}),
         response_entry("set_responses_pallas_batch", "coarse",
-                       vel_launches["coarse"] + comb_launches[1], "flagship"),
+                       vel_launches["coarse"] + comb_launches[1] + rec_resp, "flagship"),
         response_entry("set_responses_pallas", "zoom", vel_launches["precise"],
                        "zoom"),
         response_entry("group_responses_pallas_batch", "group", all_resp, "group"),
@@ -2319,7 +2733,8 @@ def main():
         beamform_entry("bartlett_power", bf_launches["bartlett_processor"]),
         # no TPU kernel's counterpart: the ground scan's lax.scan, one launch a call
         {"name": "altitude_track", "route": "cuda", "source": GROUND_SOURCE,
-         "replaces": GROUND_REPLACES, "launches": ground_launches,
+         "replaces": GROUND_REPLACES,
+         "launches": ground_launches + rec_launches["ground"].get("altitude_track", 0),
          "max_abs_err": track_err, **track_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,20 @@ the detector API (CFAR threshold maps, the CFAR detector classes, the
 range and range-Doppler detectors, the altimeter and the point-cloud
 generator), the altimeter-gated ground scan, the velocity object API
 (the Doppler-azimuth processor, the ADC-domain velocity estimator and the
-points estimators), and the spectral-map family (range-angle,
+points estimators), the spectral-map family (range-angle,
 micro-Doppler, strip-map SAR, DBS and synthetic-aperture processors and
-their batched pipelines).  Every ``build_*`` function and class takes an
-explicit ``device``.
+their batched pipelines), and the recording path (the CPSL reader, the
+NPY bulk loader, the recording runner, stage timing, checkpoints and the
+velocity analyzers).  Every ``build_*`` function, class and runner takes
+an explicit ``device``.
 
 - ``config``, ``data``, ``utils.verify`` — configuration parsing and grids,
-                      the scene simulator, seeded input frames.
+                      the scene simulator, the CPSL recording reader and
+                      the NPY bulk loader, seeded input frames.
+- ``utils``         — logger, ``.env`` roots, rotations, ``StageTimer``
+                      and tracing, state checkpoints.
+- ``analysis``      — velocity error statistics and the per-frame
+                      velocity-analysis flow over a recording.
 - ``ops.dft``       — DFT factor matrices and the spectral stages
                       (JAX: ``ops/mxu.py``).
 - ``ops.cfar``      — CA/GO/SO/OS threshold maps, 1D and 2D, and counting
@@ -60,7 +67,9 @@ explicit ``device``.
                       ``build_micro_doppler_pipeline``,
                       ``build_strip_map_pipeline``, ``build_dbs_pipeline`` and
                       ``build_synthetic_aperture_pipeline``, each an
-                      ``nn.Module``.
+                      ``nn.Module``; ``parallel.recording.process_recording``
+                      serves a recording through the combined, point-cloud
+                      or ground pipeline.
 
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
 """

@@ -8,6 +8,8 @@
 - ``spectral_pipeline`` — range-Doppler, range-angle and Doppler-azimuth
   maps, micro-Doppler spectrograms, strip-map SAR and DBS maps.
 - ``beamform_pipeline`` — synthetic-aperture beamforming over a recording.
+- ``recording``         — a CPSL recording served batch by batch through the
+  combined, point-cloud or ground pipeline (imported as a module).
 """
 
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import (

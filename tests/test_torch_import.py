@@ -53,6 +53,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _JAX_FREE_RUN = """
 import sys
 sys.modules["jax"] = None  # any import of jax now fails, even a preloaded one
+# the card's host is not known to have these: nothing may import them at module level
+for name in ("yaml", "pandas", "imageio"):
+    sys.modules[name] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -138,7 +141,19 @@ import importlib, pkgutil
 walked = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in walked:
     importlib.import_module(name)
-assert len(walked) >= 49, walked
+assert len(walked) >= 66, walked
+# the recording path's host layer, and the scripts that drive it (top level only)
+import runpy, glob
+scripts = sorted(glob.glob("scripts/torch_*.py"))
+assert len(scripts) == 4, scripts
+for path in scripts:
+    runpy.run_path(path, run_name="imported")
+from mmwave_radar_processing_tpu_torch.analysis import VelocityAnalyzer
+analyzer = VelocityAnalyzer()
+analyzer.analyze(np.ones((3, 3)), np.zeros((3, 3)))
+assert analyzer.compute_summary_statistics(analyzer.get_norm_errors())["Mean"] > 1.7
+from mmwave_radar_processing_tpu_torch.utils.checkpoint import flatten
+assert flatten({"b": 1, "a": (2, None)}) == [2, 1]
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
 jax_package = sorted(m for m in sys.modules if m == "mmwave_radar_processing_tpu"
@@ -162,7 +177,8 @@ def test_no_source_of_the_port_imports_the_jax_package():
                         recursive=True)
     sources += [os.path.join(REPO, name) for name in
                 ("chip_smoke.py", "torch_pointcloud_stages.py", "torch_velocity_stages.py")]
-    assert len(sources) >= 40
+    sources += glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
+    assert len(sources) >= 70
     banned = re.compile(r"^\s*(from|import)\s+(jax|mmwave_radar_processing_tpu)(\.|\s|$)",
                         re.MULTILINE)
     for path in sources:
@@ -268,3 +284,53 @@ def test_spectral_api_needs_a_device_and_raises_without_a_gpu(flagship_config, n
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SPECTRAL_API[name](flagship_config, device="cuda")
+
+
+def test_no_module_of_the_port_imports_yaml_pandas_or_imageio_at_top_level():
+    """A grep of the port and ``chip_smoke.py``: those imports sit inside functions only."""
+    sources = glob.glob(os.path.join(REPO, "mmwave_radar_processing_tpu_torch", "**", "*.py"),
+                        recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    top_level = re.compile(r"^(from|import)\s+(yaml|pandas|imageio)(\.|\s|$)", re.MULTILINE)
+    for path in sources:
+        with open(path) as fh:
+            found = top_level.search(fh.read())
+        assert found is None, f"{os.path.relpath(path, REPO)}: {found.group(0).strip()}"
+    assert top_level.search("import pandas as pd") and not top_level.search("    import yaml")
+
+
+@pytest.mark.parametrize("script", ["torch_process_recording.py", "torch_simulate_dataset.py",
+                                    "torch_test_vel_estimation.py",
+                                    "torch_test_multi_vel_estimation.py"])
+def test_scripts_of_the_port_import_no_jax(script):
+    """Each ``scripts/torch_*.py`` answers ``--help`` with JAX, the JAX package and yaml blocked."""
+    blocked = ("import sys, runpy; "
+               "[sys.modules.__setitem__(m, None) for m in ('jax', 'yaml', 'pandas', 'imageio', "
+               "'mmwave_radar_processing_tpu')]; "
+               f"sys.argv = ['{script}', '--help']; "
+               f"runpy.run_path('scripts/{script}', run_name='__main__')")
+    if script.endswith("vel_estimation.py"):  # yaml is imported in main, after the arguments
+        blocked = blocked.replace("'yaml', ", "")
+    proc = subprocess.run([sys.executable, "-c", blocked], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "usage" in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["process_recording", "analyze_velocity"])
+def test_recording_api_needs_a_device_and_raises_without_a_gpu(flagship_config, tmp_path, name):
+    from mmwave_radar_processing_tpu_torch.analysis import analyze_velocity
+    from mmwave_radar_processing_tpu_torch.data import CpslDS
+    from mmwave_radar_processing_tpu_torch.parallel.recording import process_recording
+
+    calls = {"process_recording": lambda **kw: process_recording(["x.npy"], flagship_config,
+                                                                  mode="points", **kw),
+             "analyze_velocity": lambda **kw: analyze_velocity(
+                 CpslDS(str(tmp_path)), flagship_config,
+                 {"processors": {"point_cloud_generator": {
+                     "az_antenna_idxs": [0, 3, 4, 7], "el_antenna_idxs": [9, 8, 5, 4]}}}, **kw)}
+    with pytest.raises(TypeError):
+        calls[name]()  # no implicit default device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name](device="cuda")
