@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map and recording paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map and recording paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -178,6 +178,23 @@ failure (exit code != 0):
    1, 2, 4 and 8 threads beside its numpy reader.  The files were just
    written, so they are read from the page cache: disk reads are not
    measured.
+24. verify against JAX: ``utils/verify.run_verify`` on the card for the six
+   verify metrics (``pointcloud_f32``, ``velocity``, ``combined``,
+   ``ground``, ``capon``, ``bartlett``) over ``make_inputs(cfg, 32,
+   seed=7)`` against the JAX package's outputs committed in
+   ``tests/oracles/jax_verify_b32_s7.npz`` (the velocity runs take the
+   oracle's RANSAC draws), at the JAX package's gates unchanged; each
+   leaf's agreement and the point sets' IoU printed; ``ok`` required;
+25. detector twin: ``scripts/torch_verify_detectors.py``'s six rows on the
+   card all PASS and their detections equal the CPU port's; ``os_cfar_1d``
+   launches the k-th-smallest kernel and ``os_cfar_2d`` the noise kernel;
+26. bench entry point: ``python3 bench_torch.py`` (default metric and batch)
+   in a subprocess, whose last line must parse as its result (``bench.py``'s
+   keys, the roofline fields, the card); then its timing function in this
+   process for all six metrics at batch 1024: frames/s positive and the ms
+   a batch within ``BENCH_ENTRY_FACTOR`` of this phase's own
+   ``measure_path`` figure for the same pipeline, each metric's kernels
+   launched.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -298,6 +315,18 @@ MAX_ANGLE_FLIP_SHARE = 0.01
 SA_FRAMES = 32
 SA_VEL = (0.2, 0.01, 0.0)
 RANSAC_SEED = 0
+#: the hand-written kernels each bench metric's pipeline launches
+PATH_KERNELS = {"pointcloud": ("os_cfar_2d_detect",), "velocity": ("doppler_az_responses",),
+                "combined": ("os_cfar_2d_detect", "doppler_az_responses"),
+                "ground": ("altitude_track",), "capon": ("capon_power",),
+                "bartlett": ("bartlett_power",)}
+#: bench_entry: the entry point's ms a batch within this factor of measure_path's
+BENCH_ENTRY_FACTOR = 1.5
+#: keys of bench_torch.py's result line (bench.py's, the roofline fields, the card)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "baseline_frames_per_s",
+              "baseline_workload", "per_repeat_frames_per_s", "flops_per_frame",
+              "bytes_per_frame", "tflops", "mfu", "hbm_gbs", "hbm_util", "bound",
+              "cost_source", "peak_tflops", "peak_gbs", "card", "peak_mem_mb"}
 #: the recording phases: a simulated CPSL recording served at batch 16 (two
 #: full batches and a tail of 8), and a recording of 4,196 frames (four
 #: batches of 1024 and a tail of 100, ~3.5 minutes at 20 Hz) at batch 1024
@@ -1094,22 +1123,22 @@ def time_beamform(capon, raw_re, raw_im):
 
 def bench_inputs(cfg, device, batch=1024):
     """``bench.py``'s inputs: standard normal planes (seed 0), altitude 1.2."""
-    rng = np.random.default_rng(0)
-    shape = (batch, cfg.num_rx_antennas, cfg.num_adc_samples, cfg.chirps_per_frame)
-    raw_re = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-    raw_im = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-    return raw_re, raw_im, torch.full((batch,), 1.2, device=device)
+    import bench_torch
+
+    return bench_torch.bench_args(cfg, batch, 0, True, device)
 
 
-def measure_path(name, fn, device, batch=1024, iters=20):
+def measure_path(name, fn, device, batch=1024, iters=20, phase="throughput"):
+    """Device ms a call of ``fn`` over ``iters`` calls after a warm-up; emits and returns it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     ms = cuda_ms(fn, iters)
-    emit(phase="throughput", path=name, batch=batch, iters=iters, ms_per_batch=ms,
+    emit(phase=phase, path=name, batch=batch, iters=iters, ms_per_batch=ms,
          frames_per_s=batch / (ms / 1e3),
          peak_mem_mb=torch.cuda.max_memory_allocated(device) / 1e6)
+    return ms
 
 
 def time_responses(vel_pipeline, device, batch=1024):
@@ -1648,19 +1677,25 @@ def kernel_wrappers():
             "altitude_track": altitude_track.altitude_track}
 
 
-def no_kernel_launched(phase, fn):
-    """Run ``fn`` with every launch count at 0 and raise if a hand-written kernel ran.
-
-    No TPU kernel lies on the spectral-map paths (the JAX package computes
-    them in plain XLA), so the port's versions are library calls only.
-    """
+def count_launches(fn):
+    """Run ``fn`` with every launch count at 0: ``(its result, {kernel: launches})``."""
     wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    launched = {name: w.launches for name, w in wrappers.items() if w.launches}
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def no_kernel_launched(phase, fn):
+    """Run ``fn`` with every launch count at 0 and raise if a hand-written kernel ran.
+
+    No TPU kernel lies on the spectral-map paths (the JAX package computes
+    them in plain XLA), so the port's versions are library calls only.
+    """
+    out, counts = count_launches(fn)
+    launched = {name: n for name, n in counts.items() if n}
     if launched:
         raise RuntimeError(f"{phase}: hand-written kernels launched on a library path: {launched}")
     return out
@@ -2548,6 +2583,105 @@ def measure_recording_throughput(cfg, device):
         del re_d, im_d
 
 
+def require_launched(phase, launched, names):
+    missing = [name for name in names if not launched.get(name)]
+    if missing:
+        raise RuntimeError(f"{phase}: the path never launched {missing}: {launched}")
+
+
+def add_launches(totals, launched):
+    for name, n in launched.items():
+        totals[name] = totals.get(name, 0) + n
+
+
+def check_bench_entry(cfg, device):
+    """``bench_torch.py`` as a user runs it, then its timing function for every metric.
+
+    Each metric's frames/s must be positive and its ms a batch within
+    ``BENCH_ENTRY_FACTOR`` of this phase's own ``measure_path`` figure for
+    the same pipeline on the same inputs (a check that the entry point times
+    the work, not a speed gate).  Returns the kernels' launches over the
+    in-process runs.
+    """
+    import bench_torch
+    from mmwave_radar_processing_tpu_torch.utils import verify
+
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_torch.py failed (rc {proc.returncode}):\n"
+                           f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = BENCH_KEYS - set(line)
+    if missing or not line["value"] > 0 or line["mfu"] is None:
+        raise RuntimeError(f"bench_torch.py: malformed result line (missing {missing}): {line}")
+    emit(phase="bench_entry", run="python3 bench_torch.py", result=line)
+    raw_re, raw_im, alts = bench_inputs(cfg, device)
+    totals = {}
+    for metric in bench_torch.METRICS:
+        fn, needs_alt = verify.build_fn(cfg, metric, device=device)
+        args = (raw_re, raw_im) + ((alts,) if needs_alt else ())
+        path_ms = measure_path(metric, lambda: fn(*args), device, phase="bench_entry")
+        timing, launched = count_launches(lambda: bench_torch.time_metric(metric, device=device))
+        ratio = timing["ms_per_batch"] / path_ms
+        result = bench_torch.bench_result(metric, timing, device)
+        emit(phase="bench_entry", metric=metric, bench_ms_per_batch=timing["ms_per_batch"],
+             measure_path_ms=path_ms, ratio=ratio, launches=launched, result=result)
+        if not (timing["frames_per_s"] > 0
+                and 1 / BENCH_ENTRY_FACTOR <= ratio <= BENCH_ENTRY_FACTOR):
+            raise RuntimeError(f"bench_entry ({metric}): {timing['ms_per_batch']:.4f} ms a batch "
+                               f"against measure_path's {path_ms:.4f}")
+        require_launched(f"bench_entry ({metric})", launched, PATH_KERNELS[metric])
+        add_launches(totals, launched)
+    return totals
+
+
+def check_verify_vs_jax(device):
+    """``run_verify`` on the card for every metric against the committed JAX oracle.
+
+    The first direct comparison of the card's output with the JAX
+    package's: ``make_inputs(flagship, 32, seed=7)``, the oracle's RANSAC
+    draws, the JAX package's gates unchanged.  Returns the kernels' launches.
+    """
+    from mmwave_radar_processing_tpu_torch.utils import verify
+
+    report, launched = count_launches(
+        lambda: verify.run_verify(verify.VERIFY_METRICS, 32, device=device))
+    for leaf in report["leaves"]:
+        emit(phase="verify_vs_jax", **leaf)
+    emit(phase="verify_vs_jax", ok=report["ok"], device=report["device"],
+         oracle=report["oracle"], n_leaves=len(report["leaves"]), launches=launched)
+    if not report["ok"]:
+        failed = [leaf["leaf"] for leaf in report["leaves"] if not leaf["ok"]]
+        raise RuntimeError(f"verify_vs_jax: the card disagrees with the JAX oracle on {failed}")
+    require_launched("verify_vs_jax", launched,
+                     sorted({name for names in PATH_KERNELS.values() for name in names}))
+    return launched
+
+
+def check_verify_detectors(device):
+    """``scripts/torch_verify_detectors.py``'s six rows on the card: all PASS, detections as the CPU port's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_verify_detectors", os.path.join(HERE, "scripts", "torch_verify_detectors.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    rows, launched = count_launches(lambda: twin.run(device))
+    want = twin.run("cpu")
+    print(twin.table(rows), flush=True)
+    for got, cpu in zip(rows, want):
+        same = sorted(got["detections"]) == sorted(cpu["detections"])
+        emit(phase="verify_detectors", detector=got["name"], hit=got["hit"],
+             detections=len(got["detections"]), ok=got["ok"], equals_cpu_port=same)
+        if not (got["ok"] and same):
+            raise RuntimeError(f"verify_detectors ({got['name']}): "
+                               f"{'FAIL' if not got['ok'] else 'detections differ from the CPU port'}")
+    emit(phase="verify_detectors", launches=launched)
+    require_launched("verify_detectors", launched, ("kth_smallest", "os_cfar_2d_noise"))
+    return launched
+
+
 def build_kernels():
     """``nvcc`` for each kernel source and ``g++`` for the NPY loader, all started together; emits each build."""
     from mmwave_radar_processing_tpu_torch.data import native_loader
@@ -2608,6 +2742,7 @@ def main():
         return kernel_times()
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--kernel-times]")
+    import bench_torch
     from mmwave_radar_processing_tpu_torch import (
         build_capon_pipeline, build_full_pipeline, build_ground_point_cloud_pipeline,
         build_point_cloud_pipeline, build_velocity_pipeline, load_cfg, make_inputs,
@@ -2632,9 +2767,7 @@ def main():
     ground = build_ground_point_cloud_pipeline(cfg, device=device)
     ground_altitude = build_ground_point_cloud_pipeline(cfg, stop_after="altitude",
                                                         device=device)
-    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("TF32 is on: the port runs full float32 only")
+    bench_torch.require_full_fp32()
 
     build_kernels()
     max_err = max(check_kernel(device), check_compact_kernel(device))
@@ -2658,6 +2791,12 @@ def main():
         recording = write_recording_slice(cfg, root)
         rec_launches = check_recording_slice(cfg, device, recording)
         analysis_launches = check_velocity_analysis(cfg, device, recording)
+    verify_launches = check_verify_vs_jax(device)
+    detector_launches = check_verify_detectors(device)
+    bench_launches = check_bench_entry(cfg, device)
+    entry_launches = {}
+    for launched in (verify_launches, detector_launches, bench_launches):
+        add_launches(entry_launches, launched)
 
     raw_re, raw_im, alts = bench_inputs(cfg, device)
     measure_path("pointcloud", lambda: gpu_pipeline(raw_re, raw_im), device)
@@ -2704,22 +2843,31 @@ def main():
     # the recording slice's launches join those of the paths it serves through
     rec_cfar = sum(rec_launches[m].get("os_cfar_2d_detect", 0) for m in RECORDING_MODES)
     rec_resp = rec_launches["2d"].get("doppler_az_responses", 0)
-    all_resp = vel_launches["coarse"] + vel_launches["precise"] + comb_launches[1] + rec_resp
+    # the entry points of bench_torch.py, run_verify and the detector twin add theirs
+    entry_resp = entry_launches.get("doppler_az_responses", 0)
+    all_resp = (vel_launches["coarse"] + vel_launches["precise"] + comb_launches[1] + rec_resp
+                + entry_resp)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES, "launches": launches + comb_launches[0] + rec_cfar,
+         "replaces": KERNEL_REPLACES,
+         "launches": launches + comb_launches[0] + rec_cfar
+         + entry_launches.get("os_cfar_2d_detect", 0),
          # the paths launch its compacting entry, whose times these are; the
          # mask entry's (the detector classes' and the cross-check's) are under "mask_entry"
          "max_abs_err": max_err, **cfar_ms},
         # TPU kernels #2 and #3, over the detector slice's runs; #3 is timed
         # at the ground detector's width (its times at [168448, 220] are
         # under "wide")
-        rank_entry("os_cfar_2d_noise", rank_launches["noise"], noise_err, noise_ms),
-        rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches, kth_err,
+        rank_entry("os_cfar_2d_noise",
+                   rank_launches["noise"] + entry_launches.get("os_cfar_2d_noise", 0),
+                   noise_err, noise_ms),
+        rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches
+                   + entry_launches.get("kth_smallest", 0), kth_err,
                    {**kth_ms["narrow"], "wide": kth_ms["wide"]}),
         response_entry("set_responses_pallas_batch", "coarse",
-                       vel_launches["coarse"] + comb_launches[1] + rec_resp, "flagship"),
+                       vel_launches["coarse"] + comb_launches[1] + rec_resp + entry_resp,
+                       "flagship"),
         response_entry("set_responses_pallas", "zoom", vel_launches["precise"],
                        "zoom"),
         response_entry("group_responses_pallas_batch", "group", all_resp, "group"),
@@ -2727,14 +2875,16 @@ def main():
         # of the capon pipeline and processor runs, #8 the Bartlett kernel of
         # the bartlett pipeline run, #9 the same kernel of the Bartlett
         # processor run (its snapshot-block layout is [N, A, 1, K])
-        beamform_entry("capon_power_pallas",
-                       bf_launches["capon"] + bf_launches["capon_processor"]),
-        beamform_entry("bartlett_power_pallas_cov", bf_launches["bartlett"]),
+        beamform_entry("capon_power_pallas", bf_launches["capon"]
+                       + bf_launches["capon_processor"] + entry_launches.get("capon_power", 0)),
+        beamform_entry("bartlett_power_pallas_cov",
+                       bf_launches["bartlett"] + entry_launches.get("bartlett_power", 0)),
         beamform_entry("bartlett_power", bf_launches["bartlett_processor"]),
         # no TPU kernel's counterpart: the ground scan's lax.scan, one launch a call
         {"name": "altitude_track", "route": "cuda", "source": GROUND_SOURCE,
          "replaces": GROUND_REPLACES,
-         "launches": ground_launches + rec_launches["ground"].get("altitude_track", 0),
+         "launches": ground_launches + rec_launches["ground"].get("altitude_track", 0)
+         + entry_launches.get("altitude_track", 0),
          "max_abs_err": track_err, **track_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

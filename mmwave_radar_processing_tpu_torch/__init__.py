@@ -74,6 +74,8 @@ an explicit ``device``.
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
 """
 
+__version__ = "0.1.0"
+
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids, load_cfg
 from mmwave_radar_processing_tpu_torch.utils.verify import make_inputs
 from mmwave_radar_processing_tpu_torch.parallel.capon_pipeline import (
@@ -143,6 +145,7 @@ from mmwave_radar_processing_tpu_torch.processors import (
 )
 
 __all__ = [
+    "__version__",
     "RadarConfig",
     "grids",
     "load_cfg",

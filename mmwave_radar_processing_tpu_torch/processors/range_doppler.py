@@ -7,7 +7,7 @@ is free.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Union
 
 import numpy as np
 import torch
@@ -26,22 +26,26 @@ def hann_window_2d(ns: int, nc: int, device) -> torch.Tensor:
     return torch.from_numpy(np.multiply.outer(hanning(ns), hanning(nc))).to(device)
 
 
-def range_doppler_map(adc_cube: torch.Tensor,
-                      window: Optional[torch.Tensor] = None) -> torch.Tensor:
+def range_doppler_map(adc_cube: torch.Tensor, *,
+                      window: Union[bool, torch.Tensor] = True) -> torch.Tensor:
     """Complex range-Doppler cube for all RX.
 
     Args:
         adc_cube: ``[..., rx, samples, chirps]`` complex64.
-        window: the ``[samples, chirps]`` window on the cube's device; the 2D
-            Hann window is built when not given.
+        window: as in the JAX package, ``True`` applies the 2D Hann window and
+            ``False`` none; a ``[samples, chirps]`` tensor on the cube's
+            device is applied as given (the processor passes its cached
+            Hann window).
 
     Returns:
         ``[..., rx, samples, chirps]`` complex64, Doppler axis fftshifted
         (zero velocity centered).
     """
-    if window is None:
+    if window is True:
         window = hann_window_2d(*adc_cube.shape[-2:], adc_cube.device)
-    spec = torch.fft.fft2(adc_cube * window, dim=(-2, -1))
+    if window is not False:
+        adc_cube = adc_cube * window
+    spec = torch.fft.fft2(adc_cube, dim=(-2, -1))
     return torch.fft.fftshift(spec, dim=-1)
 
 
@@ -68,7 +72,7 @@ class RangeDopplerProcessor(Processor):
         shape = tuple(cube.shape[-2:])
         if shape not in self._rd_windows:
             self._rd_windows[shape] = hann_window_2d(*shape, self.device)
-        return range_doppler_map(cube, self._rd_windows[shape])
+        return range_doppler_map(cube, window=self._rd_windows[shape])
 
     def process(self, adc_cube, rx_idx: int = 0, return_magnitude: bool = True,
                 **kwargs) -> torch.Tensor:

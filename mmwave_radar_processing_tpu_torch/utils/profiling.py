@@ -88,8 +88,12 @@ class StageTimer:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
-    """``torch.profiler`` over the block (CPU, and CUDA when present); writes ``log_dir/trace.json``."""
+def trace(log_dir: str, host_tracer_level: int = 2):
+    """``torch.profiler`` over the block (CPU, and CUDA when present); writes ``log_dir/trace.json``.
+
+    ``host_tracer_level`` is accepted for the JAX package's signature and
+    ignored: ``torch.profiler`` has no host-tracing levels.
+    """
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -1,25 +1,70 @@
-"""Seeded simulated input frames and the agreement gates (JAX: ``utils/verify.py``).
+"""The verify leg: seeded inputs, the bench pipelines and the agreement gates (JAX: ``utils/verify.py``).
 
-The port's own copies of what it uses of the JAX package's verification
-harness, numpy only: :func:`make_inputs`, bit-equal from the same seed, and
-:func:`compare_outputs` with its gates, which scores one run's outputs
-against another's (the port on the GPU against the port on the CPU in
-``chip_smoke.py``).  Compacted point sets are scored as sets, per frame; the
-port's one precision is full float32, so its point clouds go under the
-``pointcloud_f32`` name and its raised gates.
+The port's own copies of the JAX package's verification harness, numpy and
+torch only:
+
+- :func:`make_inputs`, bit-equal to the JAX package's from the same seed;
+- :func:`build_fn`, the pipeline that ``bench_torch.py`` times for each
+  metric, built with ``bench.py``'s constants (kept here, so the bench
+  imports them from the package);
+- :func:`compute_outputs`, a run of each metric's pipeline flattened to host
+  arrays under the JAX package's own key names (``pointcloud_f32/points``,
+  ``combined/1/vx``, ``ground/final_altitude``, ``capon/out``);
+- :func:`compare_outputs` with JAX's gates, unchanged: compacted point sets
+  are scored as sets per frame, their counts within 2, every other leaf
+  position by position;
+- :func:`run_verify`, the port on a device against the committed JAX oracle
+  (``tests/oracles/jax_verify_b32_s7.npz``, written by
+  ``tests/oracles/make_oracles.py``), and :func:`dump_oracle`, which writes
+  the port's own outputs in the oracle's format.
+
+The port's one precision is full float32, so its point cloud is JAX's
+``pointcloud_f32`` metric and is held to its raised gates; JAX's bf16
+``pointcloud`` and ``pointcloud_exact`` rows are not ported.  The velocity
+pipeline's RANSAC draws cannot be reproduced in torch: the oracle carries
+JAX's own draws, and the port takes them as ``gumbel=``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import os
+import time
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from mmwave_radar_processing_tpu_torch.config import load_cfg
 from mmwave_radar_processing_tpu_torch.data import (
     PointTarget,
     ground_scene,
     simulate_frames,
 )
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+FLAGSHIP_CFG = os.path.join(REPO, "configs", "6843_RadVel_ods_20Hz.cfg")
+#: the JAX package's outputs of ``make_inputs(flagship, 32, seed=7)``
+ORACLE_PATH = os.path.join(REPO, "tests", "oracles", "jax_verify_b32_s7.npz")
+#: the oracle's key of the velocity pipeline's RANSAC draws ``[B, 2, 20, rows]``;
+#: keys without a ``/`` are the run's inputs, not its outputs
+GUMBEL_KEY = "ransac_gumbel"
+SEED_KEY = "seed"
+#: the largest batch the verify leg runs, as in the JAX package
+MAX_VERIFY_BATCH = 32
+
+#: ``bench.py``'s pipeline constants
+CFAR_PARAMS = dict(num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.0)
+AZ_IDXS, EL_IDXS = (0, 3, 4, 7), (9, 8, 5, 4)
+
+#: metrics covered by the verify pass (every batched pipeline of ``bench.py``)
+VERIFY_METRICS = ("pointcloud_f32", "velocity", "combined", "ground", "capon",
+                  "bartlett")
+
+
+def flagship_config():
+    """The flagship configuration (``configs/6843_RadVel_ods_20Hz.cfg``, ODS, facing down)."""
+    return load_cfg(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
 
 
 def make_inputs(cfg, batch: int, seed: int = 7):
@@ -211,3 +256,157 @@ def compare_outputs(oracle: Dict[str, np.ndarray],
         ok_all = ok_all and entry["ok"]
         leaves.append(entry)
     return {"ok": ok_all, "leaves": leaves}
+
+
+def build_fn(cfg, metric: str, *, device):
+    """``(pipeline, needs_altitude)`` of a bench or verify metric on ``device``.
+
+    ``pointcloud`` and ``pointcloud_f32`` are the same pipeline (the port's
+    one precision).  The pipelines take ``(raw_re, raw_im)``, and
+    ``(raw_re, raw_im, altitude)`` where ``needs_altitude``.
+    """
+    from mmwave_radar_processing_tpu_torch.parallel import (
+        build_capon_pipeline,
+        build_full_pipeline,
+        build_ground_point_cloud_pipeline,
+        build_point_cloud_pipeline,
+        build_velocity_pipeline,
+    )
+
+    if metric in ("pointcloud", "pointcloud_f32"):
+        return build_point_cloud_pipeline(
+            cfg, az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
+            cfar_params=CFAR_PARAMS, max_dets=128, device=device), False
+    if metric == "velocity":
+        return build_velocity_pipeline(cfg, device=device), True
+    if metric == "combined":
+        return build_full_pipeline(cfg, device=device), True
+    if metric == "ground":
+        return build_ground_point_cloud_pipeline(cfg, device=device), False
+    if metric in ("capon", "bartlett"):
+        return build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method=metric,
+                                    device=device), False
+    raise ValueError(f"unknown verify metric {metric!r}")
+
+
+def named_leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(name, tensor)`` for each leaf, named as ``jax.tree_util.tree_flatten_with_path``.
+
+    A NamedTuple field by its name, a tuple element by its index, joined
+    with ``/``; a bare tensor is ``out``.
+    """
+    if isinstance(tree, torch.Tensor):
+        yield "/".join(path) or "out", tree
+    elif hasattr(tree, "_fields"):
+        for field in tree._fields:
+            yield from named_leaves(getattr(tree, field), path + (field,))
+    elif isinstance(tree, (tuple, list)):
+        for i, item in enumerate(tree):
+            yield from named_leaves(item, path + (str(i),))
+    else:
+        raise TypeError(f"unexpected output leaf {type(tree).__name__} at {path}")
+
+
+def compute_outputs(cfg, metrics: Sequence[str], batch: int, seed: int = 7, *,
+                    device, gumbel: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
+    """Run each metric's pipeline on ``make_inputs(cfg, batch, seed)``; host arrays by name.
+
+    Keys are ``{metric}/{leaf}``, the JAX package's names for the same
+    outputs.  ``gumbel`` (``[batch, 2, 20, rows]`` float32) is the velocity
+    RANSAC's draws for ``velocity`` and ``combined``; without it the port
+    draws its own, and the velocity leaves cannot equal JAX's.
+    """
+    device = torch.device(device)
+    planes = make_inputs(cfg, batch, seed)
+    raw_re, raw_im, altitudes = (torch.from_numpy(a).to(device) for a in planes)
+    scores = None if gumbel is None else torch.from_numpy(np.asarray(gumbel)).to(device)
+    out: Dict[str, np.ndarray] = {}
+    for metric in metrics:
+        fn, needs_alt = build_fn(cfg, metric, device=device)
+        with torch.no_grad():
+            res = (fn(raw_re, raw_im, altitudes, gumbel=scores) if needs_alt
+                   else fn(raw_re, raw_im))
+        for name, leaf in named_leaves(res):
+            out[f"{metric}/{name}"] = leaf.cpu().numpy()
+    return out
+
+
+def load_oracle(path: str = ORACLE_PATH) -> Tuple[Dict[str, np.ndarray], dict]:
+    """``(outputs, inputs)`` of an oracle file: keys with a ``/`` are outputs.
+
+    ``inputs`` holds ``seed`` and, where the file has them, the RANSAC
+    draws under ``gumbel``.
+    """
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    outputs = {k: v for k, v in arrays.items() if "/" in k}
+    inputs = {"seed": int(arrays[SEED_KEY]), "gumbel": arrays.get(GUMBEL_KEY)}
+    return outputs, inputs
+
+
+def device_name(device) -> str:
+    """The card's name for a CUDA device, ``"cpu"`` for the CPU."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
+def run_verify(metrics: Sequence[str], batch: int, seed: int = 7, *, device,
+               oracle_path: str = ORACLE_PATH, out_path: Optional[str] = None) -> dict:
+    """The port on ``device`` against the committed JAX oracle, at JAX's gates.
+
+    Clamps ``batch`` to 32, as the JAX package does; the oracle must hold
+    the same batch, seed and metrics.  The velocity and combined runs take
+    the oracle's RANSAC draws.  Returns the JAX package's report (per-leaf
+    entries, ``ok``, batch, seed, metrics, device, time, criteria) and
+    writes it to ``out_path`` when given.
+    """
+    batch = min(batch, MAX_VERIFY_BATCH)
+    outputs, inputs = load_oracle(oracle_path)
+    if inputs["seed"] != seed:
+        raise ValueError(f"the oracle {oracle_path} was written for seed {inputs['seed']}, "
+                         f"not {seed}")
+    oracle = {k: v for k, v in outputs.items() if k.split("/", 1)[0] in metrics}
+    missing = sorted(set(metrics) - {k.split("/", 1)[0] for k in oracle})
+    if missing:
+        raise ValueError(f"the oracle {oracle_path} has no outputs for {missing}")
+    held = {v.shape[0] for k, v in oracle.items() if v.ndim}
+    if held != {batch}:
+        raise ValueError(f"the oracle {oracle_path} holds batch {sorted(held)}, not {batch}")
+    gumbel = inputs["gumbel"]
+    if gumbel is None and {"velocity", "combined"} & set(metrics):
+        raise ValueError(f"the oracle {oracle_path} has no RANSAC draws ({GUMBEL_KEY})")
+    got = compute_outputs(flagship_config(), metrics, batch, seed, device=device,
+                          gumbel=gumbel)
+    report = compare_outputs(oracle, got)
+    report.update(
+        batch=batch,
+        seed=seed,
+        metrics=list(metrics),
+        device=device_name(device),
+        oracle=os.path.relpath(os.path.abspath(oracle_path), REPO),
+        measured_at=time.strftime("%Y-%m-%dT%H:%M:%S"),
+        criteria=dict(min_discrete_agreement=MIN_DISCRETE_AGREEMENT,
+                      float_atol=FLOAT_ATOL, float_rtol=FLOAT_RTOL,
+                      min_points_set_iou=MIN_POINTS_IOU,
+                      min_count_within_2=MIN_COUNT_NEAR),
+    )
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
+def dump_oracle(metrics: Sequence[str], batch: int, out_npz: str, seed: int = 7, *,
+                device, gumbel: Optional[np.ndarray] = None) -> None:
+    """Write the port's outputs on ``device`` in the oracle's format (``np.savez_compressed``).
+
+    The draws, when given, are written beside them, so the file can stand
+    as an oracle itself.
+    """
+    batch = min(batch, MAX_VERIFY_BATCH)
+    arrays = compute_outputs(flagship_config(), metrics, batch, seed, device=device,
+                             gumbel=gumbel)
+    arrays[SEED_KEY] = np.int64(seed)
+    if gumbel is not None:
+        arrays[GUMBEL_KEY] = np.asarray(gumbel, np.float32)
+    np.savez_compressed(out_npz, **arrays)

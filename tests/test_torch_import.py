@@ -145,9 +145,16 @@ assert len(walked) >= 66, walked
 # the recording path's host layer, and the scripts that drive it (top level only)
 import runpy, glob
 scripts = sorted(glob.glob("scripts/torch_*.py"))
-assert len(scripts) == 4, scripts
-for path in scripts:
+assert len(scripts) == 5, scripts
+for path in scripts + ["bench_torch.py"]:
     runpy.run_path(path, run_name="imported")
+# the verify leg against the committed JAX oracle, and the detector twin, with JAX blocked
+from mmwave_radar_processing_tpu_torch.utils import roofline, verify
+report = verify.run_verify(["pointcloud_f32", "capon"], 32, device="cpu")
+assert report["ok"] and report["device"] == "cpu", report
+assert roofline.analytic_cost("pointcloud", cfg).flops_per_frame > 0
+twin = runpy.run_path("scripts/torch_verify_detectors.py", run_name="imported")
+assert all(row["ok"] for row in twin["run"]("cpu"))
 from mmwave_radar_processing_tpu_torch.analysis import VelocityAnalyzer
 analyzer = VelocityAnalyzer()
 analyzer.analyze(np.ones((3, 3)), np.zeros((3, 3)))
@@ -172,11 +179,12 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
-    """A grep of the port, ``chip_smoke.py`` and the stage scripts for an import of JAX or the JAX package."""
+    """A grep of the port, ``chip_smoke.py``, ``bench_torch.py``, the stage scripts and ``scripts/torch_*.py`` for an import of JAX or the JAX package."""
     sources = glob.glob(os.path.join(REPO, "mmwave_radar_processing_tpu_torch", "**", "*.py"),
                         recursive=True)
     sources += [os.path.join(REPO, name) for name in
-                ("chip_smoke.py", "torch_pointcloud_stages.py", "torch_velocity_stages.py")]
+                ("chip_smoke.py", "bench_torch.py", "torch_pointcloud_stages.py",
+                 "torch_velocity_stages.py")]
     sources += glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
     assert len(sources) >= 70
     banned = re.compile(r"^\s*(from|import)\s+(jax|mmwave_radar_processing_tpu)(\.|\s|$)",
@@ -300,7 +308,8 @@ def test_no_module_of_the_port_imports_yaml_pandas_or_imageio_at_top_level():
 
 @pytest.mark.parametrize("script", ["torch_process_recording.py", "torch_simulate_dataset.py",
                                     "torch_test_vel_estimation.py",
-                                    "torch_test_multi_vel_estimation.py"])
+                                    "torch_test_multi_vel_estimation.py",
+                                    "torch_verify_detectors.py"])
 def test_scripts_of_the_port_import_no_jax(script):
     """Each ``scripts/torch_*.py`` answers ``--help`` with JAX, the JAX package and yaml blocked."""
     blocked = ("import sys, runpy; "
@@ -334,3 +343,16 @@ def test_recording_api_needs_a_device_and_raises_without_a_gpu(flagship_config, 
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[name](device="cuda")
+
+
+def test_bench_torch_imports_no_jax():
+    """``bench_torch.py --help`` with JAX, the JAX package, yaml, pandas and imageio blocked."""
+    blocked = ("import sys, runpy; "
+               "[sys.modules.__setitem__(m, None) for m in ('jax', 'yaml', 'pandas', 'imageio', "
+               "'mmwave_radar_processing_tpu')]; "
+               "sys.argv = ['bench_torch.py', '--help']; "
+               "runpy.run_path('bench_torch.py', run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", blocked], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "usage" in proc.stdout and "--verify" in proc.stdout
