@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map and recording paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map, recording and viewer paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -194,7 +194,30 @@ failure (exit code != 0):
    process for all six metrics at batch 1024: frames/s positive and the ms
    a batch within ``BENCH_ENTRY_FACTOR`` of this phase's own
    ``measure_path`` figure for the same pipeline, each metric's kernels
-   launched.
+   launched;
+27. viewer slice (``viewer_slice``): ``parallel.viewer_pipeline``'s payload
+   pipeline with every output group, OS-CFAR 2D and then CA-CFAR 2D, on the
+   frames of phase 5 on the GPU and on the CPU port: maps and thresholds
+   within rtol ``MAP_RTOL`` and atol 1e-4 times the maximum, detection and
+   compaction leaves identical and points within ``DETECTOR_POINTS_ATOL``
+   on at least 31 of 32 frames; the ground detector's stage on the same
+   maps at 32 altitudes (on range bins, between them, past the gate's far
+   end), OS and CA, at those bars; the DBS stage on speeds on both sides of
+   its gate (gates identical, Doppler bins on >= ``MIN_DBS_BIN_AGREEMENT``);
+   then the playback controller on the card over a simulated 32-frame CPSL
+   recording with odometry, for each parameter set (``VIEWER_PARAMS_SHIPPED``,
+   the shipped YAML, and ``VIEWER_PARAMS_FULL``): every enabled key has a
+   processor and emits a payload on every frame, and the precompute equals
+   the per-frame path at the rule of ``tests/test_visualization.py:248-290``;
+   the precompute launches #1, #3, #7, #8 and the altitude recursion, the
+   per-frame fan-out #2, #3, #7 and #9;
+28. viewer throughput (``viewer_throughput``), for each parameter set: the
+   payload pipeline (all groups) at 1024 and 64 frames a batch with peak
+   memory and one profiled call; ``PrecomputedPlayback.build`` over a
+   1024-frame noise recording with odometry (~433 MB in a temporary
+   directory, deleted after), split into read, device and host copy; ms a
+   tick of ``process_next_frame`` served from the cache; ms a frame of the
+   per-frame fan-out of all 14 processors over 16 frames, busy share.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -356,6 +379,84 @@ VELOCITY_ANALYSIS_PARAMS = {
     "analysis": {"start_idx": 0, "end_idx": 10000, "error_method": "signed"},
     "transformation": {"uav_vel_matrix": np.eye(3).tolist(), "gt_vel_matrix": np.eye(3).tolist()},
 }
+_SHIPPED_ALTIMETER = {"min_altitude_m": 0.25, "zoom_search_region_m": 0.2,
+                      # PyYAML reads the file's `40e-2` (no dot) as a string
+                      "altitude_search_limit_m": "40e-2", "range_bias": 0.0,
+                      "precise_est_enabled": False}
+#: viewer parameter set (a): gui_configs/processor_params.yaml as PyYAML loads
+#: it (held equal to the file by tests/test_torch_visualization.py), what users
+#: run; under it doppler_azimuth_resp, altimeter and point_cloud_generator stay
+#: on the per-frame path
+VIEWER_PARAMS_SHIPPED = {
+    "range_angle_resp": {"num_angle_bins": 64, "rx_antennas": [0, 3, 4, 7], "chirp_idx": 0},
+    "range_angle_resp_dbs_enhanced": {
+        "num_angle_bins_range_angle_response": 64, "num_angle_bins_dbs_enhanced_response": 100,
+        "min_x_y_vel_dbs": 0.25, "rx_antennas": [0, 3, 4, 7]},
+    "range_doppler_resp": {"rx_idx": 0},
+    "micro_doppler_resp": {"target_ranges": [0.5, 2.0], "num_frames_history": 20, "rx_idx": 0},
+    "doppler_azimuth_resp": {
+        "num_angle_bins": 64, "valid_angle_range": [-1.04719755, 1.04719755],
+        "min_zoom_fft_vel_span": 0.1, "rx_antennas": [4, 5, 8, 9], "range_window": [0.9, 2.0],
+        "shift_angle": False, "use_precise_fft": False, "precise_vel_range": [-0.25, 0.25]},
+    "range_resp": {"chirp_idx": 0},
+    "range_detector": {"cfar_type": "os_cfar_1d",
+                       "cfar_params": {"num_train": 5, "num_guard": 3, "rho": 0.5, "alpha": 2}},
+    "altimeter": dict(_SHIPPED_ALTIMETER),
+    "range_doppler_detector_2d": {
+        "cfar_type": "os_cfar_2d",
+        "cfar_params": {"num_train": [5, 5], "num_guard": [3, 2], "rho": 0.7, "alpha": 2}},
+    "range_doppler_detector_sequential": {
+        "rng_cfar_type": "os_cfar_1d",
+        "rng_cfar_params": {"num_train": 5, "num_guard": 3, "rho": 0.6, "alpha": 2},
+        "vel_cfar_type": "os_cfar_1d",
+        "vel_cfar_params": {"num_train": 5, "num_guard": 2, "rho": 0.7, "alpha": 3}},
+    "range_doppler_ground_detector": {
+        "vel_cfar_type": "os_cfar_1d",
+        "vel_cfar_params": {"num_train": 16, "num_guard": 4, "rho": 0.5, "alpha": 12},
+        "altimeter_params": dict(_SHIPPED_ALTIMETER)},
+    "point_cloud_generator": {
+        "detector_type": "range_doppler_ground_detector",
+        "detector_params": {
+            "vel_cfar_type": "os_cfar_1d",
+            "vel_cfar_params": {"num_train": 12, "num_guard": 4, "rho": 0.5, "alpha": 15},
+            "altimeter_params": dict(_SHIPPED_ALTIMETER)},
+        "az_antenna_idxs": [0, 3, 4, 7], "el_antenna_idxs": [9, 8, 5, 4],
+        "shift_az_resp": True, "shift_el_resp": False},
+}
+_FULL_OS_CFAR = {"num_train": [5, 5], "num_guard": [3, 2], "rho": 0.7, "alpha": 4}
+#: viewer parameter set (b): every key covered by the precompute, the
+#: parameters of tests/test_visualization.py:60-89 plus the sequential, ground
+#: and DBS keys
+VIEWER_PARAMS_FULL = {
+    "range_doppler_resp": {"rx_idx": 0},
+    "range_resp": {"chirp_idx": 0},
+    "micro_doppler_resp": {"target_ranges": [0.2, 2.0], "num_frames_history": 5},
+    "doppler_azimuth_resp": {"num_angle_bins": 64, "rx_antennas": [0, 3, 4, 7]},
+    "range_detector": {"cfar_type": "os_cfar_1d",
+                       "cfar_params": {"num_train": 5, "num_guard": 3, "rho": 0.5, "alpha": 2}},
+    "altimeter": {"min_altitude_m": 0.25, "zoom_search_region_m": 0.2,
+                  "altitude_search_limit_m": 0.4},
+    "range_doppler_detector_2d": {"cfar_type": "os_cfar_2d", "cfar_params": _FULL_OS_CFAR},
+    "point_cloud_generator": {
+        "az_antenna_idxs": [0, 3, 4, 7], "el_antenna_idxs": [9, 8, 5, 4],
+        "detector_type": "range_doppler_detector_2d",
+        "detector_params": {"cfar_type": "os_cfar_2d", "cfar_params": _FULL_OS_CFAR}},
+    "range_doppler_detector_sequential": {
+        "rng_cfar_type": "os_cfar_1d",
+        "rng_cfar_params": {"num_train": 5, "num_guard": 3, "rho": 0.6, "alpha": 2}},
+    "range_doppler_ground_detector": {
+        "vel_cfar_type": "os_cfar_1d",
+        "vel_cfar_params": {"num_train": 5, "num_guard": 2, "rho": 0.6, "alpha": 4},
+        "altimeter_params": {"min_altitude_m": 0.25, "zoom_search_region_m": 0.2,
+                             "altitude_search_limit_m": 0.4}},
+    "range_angle_resp_dbs_enhanced": {
+        "num_angle_bins_range_angle_response": 64, "num_angle_bins_dbs_enhanced_response": 100,
+        "min_x_y_vel_dbs": 0.25, "rx_antennas": [0, 3, 4, 7]},
+}
+VIEWER_PARAM_SETS = {"shipped": VIEWER_PARAMS_SHIPPED, "full": VIEWER_PARAMS_FULL}
+#: the viewer phases: a simulated recording for correctness, a noise recording
+#: of 1024 frames for the precompute's time, frames of the per-frame fan-out
+VIEWER_FRAMES, VIEWER_THROUGHPUT_FRAMES, VIEWER_FAN_OUT_FRAMES = 32, 1024, 16
 
 
 def emit(**fields):
@@ -2583,6 +2684,323 @@ def measure_recording_throughput(cfg, device):
         del re_d, im_d
 
 
+def payloads_agree(phase, gpu, cpu):
+    """The payload pipeline's leaves, GPU vs CPU port, at the viewer slice's bars; emits and returns the frame counts."""
+    n = len(cpu["rd_map"])
+    maps = [k for k, v in cpu.items() if v.is_floating_point() and k != "points"]
+    dets = [k for k, v in cpu.items() if not v.is_floating_point()]
+    worst = 0.0
+    for name in maps:
+        want, got = cpu[name], gpu[name].cpu()
+        finite = torch.isfinite(want)
+        if not torch.equal(finite, torch.isfinite(got)):
+            raise RuntimeError(f"{phase}: {name}'s finite cells differ")
+        if want.numel() and bool(finite.any()):
+            worst = max(worst, maps_agree(got[finite], want[finite], MAP_RTOL, 1e-4,
+                                          f"{phase} {name}")
+                        / max(float(want[finite].abs().max()), 1e-30))
+    same = torch.ones(n, dtype=torch.bool)
+    for name in dets:
+        same &= (gpu[name].cpu() == cpu[name]).reshape(n, -1).all(dim=1)
+    agree = {"detections": int(same.sum())}
+    if "points" in cpu:
+        err = (gpu["points"].cpu() - cpu["points"]).abs().reshape(n, -1).amax(dim=1)
+        agree["points"] = int(((err <= DETECTOR_POINTS_ATOL) & same).sum())
+    emit(phase="viewer_slice", path=phase, frames=n, leaves=len(cpu),
+         max_map_err_of_max=worst, agreeing_frames=agree,
+         detections=int(cpu["det_count"].sum()) if "det_count" in cpu else None)
+    for what, count in agree.items():
+        if count < MIN_AGREEING_FRAMES:
+            raise RuntimeError(f"{phase}: {what} agree on only {count} of {n} frames")
+    return agree
+
+
+def viewer_altitudes(cfg):
+    """32 altitudes for the ground stage: on range bins, between them, and past the gate's far end."""
+    from mmwave_radar_processing_tpu_torch.config import grids
+
+    bins = grids.range_bins(cfg, variant="eps").astype(np.float32)
+    k = np.linspace(3, 40, 12).astype(int)
+    far = np.linspace(bins[-1] * 0.55, bins[-1] * 1.2, 8)
+    return torch.from_numpy(np.concatenate([bins[k], (bins[k] + bins[k + 1]) / 2, far])
+                            .astype(np.float32))
+
+
+def write_viewer_recording(cfg, root, frames=VIEWER_FRAMES, seed=13):
+    """A CPSL recording of the scene of tests/test_visualization.py: a ground return rising gradually and a moving target; odometry on both sides of the DBS gate.
+
+    The precompute-against-per-frame rule of that test (its absolute atol
+    of 1e-3 on the detectors' maps) was set for this scene's magnitudes.
+    """
+    from mmwave_radar_processing_tpu_torch.data import (
+        PointTarget, Scene, make_odom_rows, simulate_frame, write_dataset,
+    )
+
+    rng = np.random.default_rng(seed)
+    vels = dbs_velocities(frames, seed=seed).numpy().astype(np.float64)
+    raws = []
+    for i in range(frames):
+        scene = Scene(targets=[PointTarget(range_m=0.5 + 0.02 * i, rcs=4.0),
+                               PointTarget(range_m=1.5, azimuth_rad=0.3, velocity_m_s=0.5,
+                                           rcs=3.0)], noise_sigma=0.04)
+        raws.append(simulate_frame(cfg, scene, rng))
+    write_dataset(root, np.stack(raws), odom=np.stack([make_odom_rows(v) for v in vels]))
+    return root
+
+
+def viewer_controller(device, root, params):
+    """The port's playback controller over a recording, without PyYAML (the card's host may lack it)."""
+    from mmwave_radar_processing_tpu_torch.visualization import MmWaveRadarProcessorController
+
+    ctl = MmWaveRadarProcessorController(device=device)
+    ctl.load_dataset(root)
+    ctl.load_config(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
+    ctl.processor_params = params
+    ctl.init_processors()
+    enabled = {k for k, spec in ctl.registry.items() if spec.enabled}
+    if set(ctl.processors) != enabled:
+        raise RuntimeError(f"viewer: no processor for {sorted(enabled - set(ctl.processors))}")
+    return ctl
+
+
+def viewer_play(ctl, cache):
+    """Play the whole recording: ``(payloads by key, covered keys)``; every key must emit on every frame."""
+    covered = ctl.enable_precomputed_playback() if cache else set()
+    store = {}
+    ctl.subscribe_view_update(lambda k, p: store.setdefault(k, []).append(p))
+    ctl.play()
+    n = ctl.dataset_model.num_frames
+    short = {k: len(store.get(k, [])) for k in ctl.processors if len(store.get(k, [])) != n}
+    if short:
+        raise RuntimeError(f"viewer: keys without a payload on every one of {n} frames: {short}")
+    return store, covered
+
+
+def precompute_agrees(name, ref, pre, covered):
+    """The precompute against the per-frame path, at the rule of tests/test_visualization.py:248-290."""
+    n = len(ref["range_doppler_resp"])
+    for i in range(n):
+        for key in ({"range_doppler_resp", "range_resp", "doppler_azimuth_resp",
+                     "micro_doppler_resp", "range_angle_resp", "capon_beamformer",
+                     "bartlett_beamformer"} & covered):
+            want, got = np.asarray(ref[key][i]["data"]), np.asarray(pre[key][i]["data"])
+            finite = np.isfinite(want)
+            scale = max(np.max(np.abs(want[finite])), 1.0)
+            np.testing.assert_array_equal(finite, np.isfinite(got), err_msg=key)
+            np.testing.assert_allclose(got[finite], want[finite], rtol=2e-4, atol=2e-4 * scale,
+                                       err_msg=f"{name}: {key} frame {i}")
+        for key in ({"range_doppler_detector_2d", "range_doppler_detector_sequential",
+                     "range_doppler_ground_detector", "range_detector"} & covered):
+            np.testing.assert_array_equal(np.asarray(pre[key][i]["data"]),
+                                          np.asarray(ref[key][i]["data"]),
+                                          err_msg=f"{name}: {key} frame {i}")
+            side = "range_resp" if key == "range_detector" else "rng_dop_resp"
+            np.testing.assert_allclose(pre[key][i][side], ref[key][i][side], rtol=2e-4,
+                                       atol=1e-3, err_msg=f"{name}: {key} frame {i}")
+        if "range_detector" in covered:
+            wt = np.asarray(ref["range_detector"][i]["thresholds"])
+            gt = np.asarray(pre["range_detector"][i]["thresholds"])
+            np.testing.assert_array_equal(np.isfinite(wt), np.isfinite(gt))
+            fin = np.isfinite(wt)
+            np.testing.assert_allclose(gt[fin], wt[fin], rtol=2e-4, atol=1e-3)
+        if "point_cloud_generator" in covered:
+            np.testing.assert_allclose(np.asarray(pre["point_cloud_generator"][i]["data"]),
+                                       np.asarray(ref["point_cloud_generator"][i]["data"]),
+                                       rtol=1e-4, atol=1e-4, err_msg=f"{name}: points frame {i}")
+        if "altimeter" in covered:
+            np.testing.assert_allclose(float(pre["altimeter"][i]["data"]),
+                                       float(ref["altimeter"][i]["data"]), atol=2e-3,
+                                       err_msg=f"{name}: altimeter frame {i}")
+        if "range_angle_resp_dbs_enhanced" in covered:
+            key = "range_angle_resp_dbs_enhanced"
+            want, got = np.asarray(ref[key][i]["data"]), np.asarray(pre[key][i]["data"])
+            np.testing.assert_allclose(got, want, rtol=3e-4,
+                                       atol=3e-4 * max(float(np.abs(want).max()), 1.0),
+                                       err_msg=f"{name}: DBS frame {i}")
+        for key in covered:
+            for attr, val in ref[key][i].items():
+                if attr.endswith("_bins") and val is not None:
+                    np.testing.assert_array_equal(np.asarray(pre[key][i][attr]),
+                                                  np.asarray(val), err_msg=f"{key}.{attr}")
+
+
+def check_viewer_slice(cfg, device, frames):
+    """The viewer's device side on the card against the CPU port, and its controller's precompute against its per-frame path.
+
+    Returns the kernels' launches by TPU kernel: ``detect`` (#1), ``noise``
+    (#2), ``kth`` (#3), ``capon`` (#7), ``bartlett_cov`` (#8, the pipeline),
+    ``bartlett_snapshots`` (#9, the processor) and ``altitude``.
+    """
+    from mmwave_radar_processing_tpu_torch.parallel import (
+        build_dbs_viewer_stage, build_ground_detector_stage, build_viewer_payload_pipeline,
+    )
+    from mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline import GROUPS
+
+    totals = {}
+    cpu_in = tuple(torch.from_numpy(x) for x in frames[:2])
+    gpu_in = tuple(x.to(device) for x in cpu_in)
+    for cfar_type, params in (("os_cfar_2d", CFAR_PARAMS), ("ca_cfar_2d", None)):
+        kw = dict(include=sorted(GROUPS), cfar_type=cfar_type, cfar_params=params)
+        gpu_pipe = build_viewer_payload_pipeline(cfg, device=device, **kw)
+        gpu, launched = count_launches(lambda: gpu_pipe(*gpu_in))
+        cpu = build_viewer_payload_pipeline(cfg, device="cpu", **kw)(*cpu_in)
+        payloads_agree(f"payload_{cfar_type}", gpu, cpu)
+        require_launched(f"viewer payload ({cfar_type})", launched,
+                         ("kth_smallest",) + (("os_cfar_2d_detect",)
+                                              if cfar_type == "os_cfar_2d" else ()))
+        add_launches(totals, launched)
+
+    # the ground stage on the same maps, altitudes on bins, between them and
+    # past the gate's far end; the DBS stage on speeds on both sides of its gate
+    alt = viewer_altitudes(cfg)
+    rd = cpu["rd_map"]
+    for vel_cfar in (None, ("ca_cfar_1d", dict(num_train=6, num_guard=2, pfa=0.05))):
+        kw = {} if vel_cfar is None else dict(vel_cfar_type=vel_cfar[0],
+                                              vel_cfar_params=vel_cfar[1])
+        stage = build_ground_detector_stage(cfg, device=device, **kw)
+        got, launched = count_launches(lambda: stage(rd.to(device), alt.to(device)))
+        want = build_ground_detector_stage(cfg, device="cpu", **kw)(rd, alt)
+        names = ("det_r", "det_v", "det_valid", "det_count")
+        payloads_agree(f"ground_stage_{'ca' if vel_cfar else 'os'}",
+                       dict(zip(names, got), rd_map=rd.to(device)),
+                       dict(zip(names, want), rd_map=rd))
+        if vel_cfar is None:
+            require_launched("viewer ground stage", launched, ("kth_smallest",))
+        add_launches(totals, launched)
+    vel = dbs_velocities(len(rd))
+    for a_dbs, rx in ((100, (0, 3, 4, 7)), (64, None)):
+        kw = dict(num_angle_bins_dbs_enhanced_response=a_dbs, rx_antennas=rx)
+        gpu_stage = build_dbs_viewer_stage(cfg, device=device, **kw)
+        cpu_stage = build_dbs_viewer_stage(cfg, device="cpu", **kw)
+        ra, dbs, use = (x.cpu() for x in no_kernel_launched(
+            "viewer DBS stage", lambda: gpu_stage(*gpu_in, vel.to(device))))
+        ra_w, dbs_w, use_w = cpu_stage(*cpu_in, vel)
+        same = gpu_stage.doppler_bins(vel.to(device)).cpu() == cpu_stage.doppler_bins(vel)
+        share = float(same.float().mean())
+        if not torch.equal(use, use_w) or bool(use_w.all()) or not bool(use_w.any()):
+            raise RuntimeError("viewer DBS stage: the speed gates differ or take one branch")
+        err = max(maps_agree(ra, ra_w, MAP_RTOL, 1e-4, "viewer DBS ra_map"),
+                  maps_agree(dbs.transpose(1, 2)[same], dbs_w.transpose(1, 2)[same],
+                             MAP_RTOL, 1e-4, "viewer DBS dbs_map"))
+        emit(phase="viewer_slice", path=f"dbs_stage_{a_dbs}", fast_frames=int(use_w.sum()),
+             bins_agreeing_share=share, max_abs_diff=err)
+        if share < MIN_DBS_BIN_AGREEMENT:
+            raise RuntimeError(f"viewer DBS stage: Doppler bins agree on only {share:.4f}")
+
+    # the controller on the card: the precompute against the per-frame path
+    by_kernel = {"detect": 0, "noise": 0, "kth": totals.get("kth_smallest", 0), "capon": 0,
+                 "bartlett_cov": 0, "bartlett_snapshots": 0, "altitude": 0}
+    by_kernel["detect"] = totals.get("os_cfar_2d_detect", 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_") as root:
+        write_viewer_recording(cfg, root)
+        for name, params in VIEWER_PARAM_SETS.items():
+            (ref, _), per_frame = count_launches(
+                lambda: viewer_play(viewer_controller(device, root, params), cache=False))
+            (pre, covered), cached = count_launches(
+                lambda: viewer_play(viewer_controller(device, root, params), cache=True))
+            precompute_agrees(name, ref, pre, covered)
+            emit(phase="viewer_slice", path=f"controller_{name}", frames=VIEWER_FRAMES,
+                 keys=len(ref), covered=sorted(covered), per_frame_launches=per_frame,
+                 precompute_launches=cached,
+                 points=sum(len(p["data"]) for p in ref["point_cloud_generator"]),
+                 detections_2d=sum(len(p["data"]) for p in ref["range_doppler_detector_2d"]))
+            require_launched(f"viewer per-frame fan-out ({name})", per_frame,
+                             ("os_cfar_2d_noise", "kth_smallest", "capon_power",
+                              "bartlett_power"))
+            require_launched(f"viewer precompute ({name})", cached,
+                             ("os_cfar_2d_detect", "kth_smallest", "capon_power",
+                              "bartlett_power", "altitude_track"))
+            by_kernel["detect"] += cached["os_cfar_2d_detect"] + per_frame["os_cfar_2d_detect"]
+            by_kernel["noise"] += cached["os_cfar_2d_noise"] + per_frame["os_cfar_2d_noise"]
+            by_kernel["kth"] += cached["kth_smallest"] + per_frame["kth_smallest"]
+            by_kernel["capon"] += cached["capon_power"] + per_frame["capon_power"]
+            by_kernel["bartlett_cov"] += cached["bartlett_power"]
+            by_kernel["bartlett_snapshots"] += per_frame["bartlett_power"]
+            by_kernel["altitude"] += cached["altitude_track"] + per_frame["altitude_track"]
+    emit(phase="viewer_slice", launches=by_kernel)
+    return by_kernel
+
+
+def write_viewer_noise_recording(root, frames=VIEWER_THROUGHPUT_FRAMES, seed=0):
+    """``frames`` standard-normal frames (``write_noise_recording``) with odometry on both sides of the DBS gate."""
+    from mmwave_radar_processing_tpu_torch.data import make_odom_rows, write_dataset
+
+    write_noise_recording(root, frames=frames, seed=seed)
+    vels = dbs_velocities(frames, seed=seed).numpy().astype(np.float64)
+    write_dataset(root, odom=np.stack([make_odom_rows(v) for v in vels]))
+
+
+def measure_viewer_throughput(cfg, device):
+    """The viewer's device side at full width on the card, for both parameter sets.
+
+    The payload pipeline (all groups) at 1024 and 64 frames a batch;
+    ``PrecomputedPlayback.build`` over a 1024-frame recording, split into
+    read, device and host copy; a tick of ``process_next_frame`` served from
+    the cache; and the per-frame fan-out of all 14 processors over 16 frames.
+    """
+    from mmwave_radar_processing_tpu_torch.parallel import build_viewer_payload_pipeline
+    from mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline import GROUPS
+    from mmwave_radar_processing_tpu_torch.visualization.precompute import PrecomputedPlayback
+
+    raw_re, raw_im, _ = bench_inputs(cfg, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_1024_") as root:
+        write_viewer_noise_recording(root)
+        for name, params in VIEWER_PARAM_SETS.items():
+            ctl = viewer_controller(device, root, params)
+            kw = PrecomputedPlayback(ctl)._payload_kwargs()
+            kw["include"] = sorted(GROUPS)
+            pipe = build_viewer_payload_pipeline(cfg, device=device, **kw)
+            for batch in (1024, 64):
+                re_b, im_b = raw_re[:batch], raw_im[:batch]
+                ms = measure_path(f"viewer_payload_{name}", lambda: pipe(re_b, im_b), device,
+                                  batch=batch, phase="viewer_throughput")
+                emit(phase="viewer_throughput", path=f"viewer_payload_{name}", batch=batch,
+                     ms_per_batch=ms, **profiled_call(lambda: pipe(re_b, im_b)))
+
+            ctl.enable_precomputed_playback()  # warm-up: the pipelines' first calls
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            covered = ctl.enable_precomputed_playback()
+            cache = ctl.playback_cache
+            n = cache.num_frames
+            emit(phase="viewer_throughput", path=f"precompute_build_{name}", frames=n,
+                 batch_size=cache.batch_size, seconds=cache.build_seconds,
+                 ms_per_frame=cache.build_seconds / n * 1e3,
+                 **{k: v for k, v in cache.build_split.items()},
+                 peak_mem_mb=torch.cuda.max_memory_allocated(device) / 1e6,
+                 covered=sorted(covered), per_frame_keys=sorted(set(ctl.processors) - covered))
+
+            ticks = min(64, n)
+            ctl.process_next_frame(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ticks):
+                ctl.process_next_frame(i)
+            torch.cuda.synchronize()
+            emit(phase="viewer_throughput", path=f"cached_tick_{name}", ticks=ticks,
+                 ms_per_tick=(time.perf_counter() - t0) / ticks * 1e3,
+                 per_frame_keys=sorted(set(ctl.processors) - covered))
+
+            ctl.disable_precomputed_playback()
+            fan_out = VIEWER_FAN_OUT_FRAMES
+            for i in range(2):
+                ctl.process_next_frame(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(fan_out):
+                ctl.process_next_frame(i)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            prof = profiled_call(lambda: [ctl.process_next_frame(i) for i in range(4)])
+            emit(phase="viewer_throughput", path=f"per_frame_fan_out_{name}",
+                 frames=fan_out, processors=len(ctl.processors),
+                 ms_per_frame=seconds / fan_out * 1e3, limited_by="host",
+                 device_busy_share_under_profiler=prof["device_busy_share_under_profiler"],
+                 device_kernels_per_frame=prof["device_kernels"] / 4,
+                 device_ms_per_frame=prof["device_ms"] / 4, top_kernels=prof["top_kernels"][:4])
+    del raw_re, raw_im
+
+
 def require_launched(phase, launched, names):
     missing = [name for name in names if not launched.get(name)]
     if missing:
@@ -2791,6 +3209,7 @@ def main():
         recording = write_recording_slice(cfg, root)
         rec_launches = check_recording_slice(cfg, device, recording)
         analysis_launches = check_velocity_analysis(cfg, device, recording)
+    viewer_launches = check_viewer_slice(cfg, device, frames)
     verify_launches = check_verify_vs_jax(device)
     detector_launches = check_verify_detectors(device)
     bench_launches = check_bench_entry(cfg, device)
@@ -2814,6 +3233,7 @@ def main():
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
     measure_recording_throughput(cfg, device)
+    measure_viewer_throughput(cfg, device)
     measure_detector_api(cfg, device, frames)
     cfar_ms = time_cfar(device)
     resp_ms = time_responses(velocity, device)
@@ -2852,7 +3272,7 @@ def main():
         {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": launches + comb_launches[0] + rec_cfar
-         + entry_launches.get("os_cfar_2d_detect", 0),
+         + entry_launches.get("os_cfar_2d_detect", 0) + viewer_launches["detect"],
          # the paths launch its compacting entry, whose times these are; the
          # mask entry's (the detector classes' and the cross-check's) are under "mask_entry"
          "max_abs_err": max_err, **cfar_ms},
@@ -2860,10 +3280,11 @@ def main():
         # at the ground detector's width (its times at [168448, 220] are
         # under "wide")
         rank_entry("os_cfar_2d_noise",
-                   rank_launches["noise"] + entry_launches.get("os_cfar_2d_noise", 0),
+                   rank_launches["noise"] + entry_launches.get("os_cfar_2d_noise", 0)
+                   + viewer_launches["noise"],
                    noise_err, noise_ms),
         rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches
-                   + entry_launches.get("kth_smallest", 0), kth_err,
+                   + entry_launches.get("kth_smallest", 0) + viewer_launches["kth"], kth_err,
                    {**kth_ms["narrow"], "wide": kth_ms["wide"]}),
         response_entry("set_responses_pallas_batch", "coarse",
                        vel_launches["coarse"] + comb_launches[1] + rec_resp + entry_resp,
@@ -2874,17 +3295,22 @@ def main():
         # one CUDA source replaces TPU kernels #7-#9: #7 is the Capon kernel
         # of the capon pipeline and processor runs, #8 the Bartlett kernel of
         # the bartlett pipeline run, #9 the same kernel of the Bartlett
-        # processor run (its snapshot-block layout is [N, A, 1, K])
+        # processor run (its snapshot-block layout is [N, A, 1, K]); the
+        # viewer's precompute runs the pipelines, its per-frame fan-out the
+        # processors
         beamform_entry("capon_power_pallas", bf_launches["capon"]
-                       + bf_launches["capon_processor"] + entry_launches.get("capon_power", 0)),
+                       + bf_launches["capon_processor"] + entry_launches.get("capon_power", 0)
+                       + viewer_launches["capon"]),
         beamform_entry("bartlett_power_pallas_cov",
-                       bf_launches["bartlett"] + entry_launches.get("bartlett_power", 0)),
-        beamform_entry("bartlett_power", bf_launches["bartlett_processor"]),
+                       bf_launches["bartlett"] + entry_launches.get("bartlett_power", 0)
+                       + viewer_launches["bartlett_cov"]),
+        beamform_entry("bartlett_power", bf_launches["bartlett_processor"]
+                       + viewer_launches["bartlett_snapshots"]),
         # no TPU kernel's counterpart: the ground scan's lax.scan, one launch a call
         {"name": "altitude_track", "route": "cuda", "source": GROUND_SOURCE,
          "replaces": GROUND_REPLACES,
          "launches": ground_launches + rec_launches["ground"].get("altitude_track", 0)
-         + entry_launches.get("altitude_track", 0),
+         + entry_launches.get("altitude_track", 0) + viewer_launches["altitude"],
          "max_abs_err": track_err, **track_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

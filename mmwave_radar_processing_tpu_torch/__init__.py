@@ -19,8 +19,10 @@ points estimators), the spectral-map family (range-angle,
 micro-Doppler, strip-map SAR, DBS and synthetic-aperture processors and
 their batched pipelines), and the recording path (the CPSL reader, the
 NPY bulk loader, the recording runner, stage timing, checkpoints and the
-velocity analyzers).  Every ``build_*`` function, class and runner takes
-an explicit ``device``.
+velocity analyzers), and the viewer's device side and headless backend
+(the batched payload pipelines, the playback controller and its
+precompute-then-scrub cache).  Every ``build_*`` function, class and runner
+takes an explicit ``device``; the playback controller's defaults to CUDA.
 
 - ``config``, ``data``, ``utils.verify`` — configuration parsing and grids,
                       the scene simulator, the CPSL recording reader and
@@ -69,7 +71,13 @@ an explicit ``device``.
                       ``build_synthetic_aperture_pipeline``, each an
                       ``nn.Module``; ``parallel.recording.process_recording``
                       serves a recording through the combined, point-cloud
-                      or ground pipeline.
+                      or ground pipeline; ``build_viewer_payload_pipeline``,
+                      ``build_ground_detector_stage`` and
+                      ``build_dbs_viewer_stage`` serve the viewer.
+- ``visualization`` — the processor registry, the playback controller, the
+                      precompute cache and the view grid's model (no
+                      drawing; nothing imports PyYAML, matplotlib or Qt at
+                      module level).
 
 Precision is full float32 with TF32 off; there is no reduced-precision mode.
 """

@@ -89,6 +89,10 @@ class CpslDS:
         """Complex ADC cube ``[rx, sample, chirp]`` for frame ``idx``."""
         return np.load(self._files["radar_adc"][idx])
 
+    def get_radar_adc_paths(self) -> List[str]:
+        """The ADC frames' files in frame order (for a bulk loader)."""
+        return list(self._files["radar_adc"])
+
     def get_radar_point_cloud(self, idx: int) -> np.ndarray:
         """Pre-generated radar point cloud ``(N, >=4)`` for frame ``idx``.
 

@@ -8,6 +8,8 @@
 - ``spectral_pipeline`` — range-Doppler, range-angle and Doppler-azimuth
   maps, micro-Doppler spectrograms, strip-map SAR and DBS maps.
 - ``beamform_pipeline`` — synthetic-aperture beamforming over a recording.
+- ``viewer_pipeline``   — the viewer's payloads of a whole recording, the
+  ground detector's gated tail and the DBS stage.
 - ``recording``         — a CPSL recording served batch by batch through the
   combined, point-cloud or ground pipeline (imported as a module).
 """
@@ -41,6 +43,11 @@ from mmwave_radar_processing_tpu_torch.parallel.spectral_pipeline import (
     build_spectral_maps_pipeline,
     build_strip_map_pipeline,
 )
+from mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline import (
+    build_dbs_viewer_stage,
+    build_ground_detector_stage,
+    build_viewer_payload_pipeline,
+)
 
 __all__ = [
     "PointCloudBatch",
@@ -62,4 +69,7 @@ __all__ = [
     "build_micro_doppler_pipeline",
     "build_strip_map_pipeline",
     "build_dbs_pipeline",
+    "build_viewer_payload_pipeline",
+    "build_ground_detector_stage",
+    "build_dbs_viewer_stage",
 ]

@@ -183,6 +183,13 @@ class StripMapPipeline(_SpectralPipeline):
         return dft.cabs(self.rng.transpose(0, 1) @ sl[:, 0] @ self.dop)
 
 
+def nearest_doppler_bins(velocity_ned: torch.Tensor, dirs: torch.Tensor,
+                         vel_bins: torch.Tensor) -> torch.Tensor:
+    """``int64 [B, n]``: for each frame and look direction ``dirs [n, 2]`` (unit ``(cos, sin)``), the bin of ``vel_bins`` nearest the ground's Doppler ``-(r_hat @ v[:2])``; ties go to the first bin."""
+    dop_vel = -(velocity_ned[:, :2] @ dirs.transpose(0, 1))
+    return torch.argmin(torch.abs(vel_bins - dop_vel[..., None]), dim=-1)
+
+
 class DBSPipeline(_SpectralPipeline):
     """``(raw_re, raw_im, velocity_ned [B, 3]) -> float32 [B, ns, n_dbs]``; see :func:`build_dbs_pipeline`."""
 
@@ -219,8 +226,7 @@ class DBSPipeline(_SpectralPipeline):
 
     def doppler_bins(self, velocity_ned: torch.Tensor) -> torch.Tensor:
         """Each frame's Doppler bin per DBS angle, ``[B, n_dbs]``: the bin nearest ``-(r_hat @ v[:2])``."""
-        dop_vel = -(velocity_ned[:, :2] @ self.dbs_dirs.transpose(0, 1))
-        return torch.argmin(torch.abs(self.vel_bins - dop_vel[..., None]), dim=-1)
+        return nearest_doppler_bins(velocity_ned, self.dbs_dirs, self.vel_bins)
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor,
                 velocity_ned: torch.Tensor) -> torch.Tensor:

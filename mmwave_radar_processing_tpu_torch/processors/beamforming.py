@@ -81,6 +81,7 @@ class _CovarianceBeamformerProcessor(Processor):
         diagonal_loading: float = 1e-2,
         *,
         device,
+        **kwargs,
     ):
         super().__init__(config)
         if antenna_idxs is None:

@@ -54,7 +54,7 @@ _JAX_FREE_RUN = """
 import sys
 sys.modules["jax"] = None  # any import of jax now fails, even a preloaded one
 # the card's host is not known to have these: nothing may import them at module level
-for name in ("yaml", "pandas", "imageio"):
+for name in ("yaml", "pandas", "imageio", "matplotlib", "PyQt6", "pyqtgraph"):
     sys.modules[name] = None
 import numpy as np
 import torch
@@ -141,7 +141,19 @@ import importlib, pkgutil
 walked = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in walked:
     importlib.import_module(name)
-assert len(walked) >= 66, walked
+assert len(walked) >= 73, walked
+assert {"mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline",
+        "mmwave_radar_processing_tpu_torch.visualization.controller",
+        "mmwave_radar_processing_tpu_torch.visualization.precompute",
+        "mmwave_radar_processing_tpu_torch.visualization.processor_registry",
+        "mmwave_radar_processing_tpu_torch.visualization.view_panel"} <= set(walked)
+# the viewer's backend: the payload pipeline on the batch, the controller's registry
+from mmwave_radar_processing_tpu_torch.parallel import build_viewer_payload_pipeline
+payload = build_viewer_payload_pipeline(cfg, cfar_type="os_cfar_2d", cfar_params=dict(
+    num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.0), device="cpu")(re_t, im_t)
+assert torch.equal(payload["det_count"], out.count)
+from mmwave_radar_processing_tpu_torch.visualization import get_default_registry
+assert len(get_default_registry()) == 14
 # the recording path's host layer, and the scripts that drive it (top level only)
 import runpy, glob
 scripts = sorted(glob.glob("scripts/torch_*.py"))
@@ -295,15 +307,17 @@ def test_spectral_api_needs_a_device_and_raises_without_a_gpu(flagship_config, n
 
 
 def test_no_module_of_the_port_imports_yaml_pandas_or_imageio_at_top_level():
-    """A grep of the port and ``chip_smoke.py``: those imports sit inside functions only."""
+    """A grep of the port and ``chip_smoke.py``: those imports, and matplotlib's and Qt's, sit inside functions only."""
     sources = glob.glob(os.path.join(REPO, "mmwave_radar_processing_tpu_torch", "**", "*.py"),
                         recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    top_level = re.compile(r"^(from|import)\s+(yaml|pandas|imageio)(\.|\s|$)", re.MULTILINE)
+    top_level = re.compile(r"^(from|import)\s+(yaml|pandas|imageio|matplotlib|PyQt6|pyqtgraph)"
+                           r"(\.|\s|$)", re.MULTILINE)
     for path in sources:
         with open(path) as fh:
             found = top_level.search(fh.read())
         assert found is None, f"{os.path.relpath(path, REPO)}: {found.group(0).strip()}"
     assert top_level.search("import pandas as pd") and not top_level.search("    import yaml")
+    assert top_level.search("from PyQt6 import QtCore") and top_level.search("import matplotlib")
 
 
 @pytest.mark.parametrize("script", ["torch_process_recording.py", "torch_simulate_dataset.py",
