@@ -4,6 +4,7 @@
     python3 bench_torch.py [--metric pointcloud] [--batch 1024] [--iters 60] [--repeats 3]
     python3 bench_torch.py --verify [--verify-metrics a,b] [--verify-out report.json]
     python3 bench_torch.py --verify-dump port_outputs.npz
+    python3 bench_torch.py --metric scaling
 
 Runs one of ``bench.py``'s batched pipelines through the port on the
 flagship config (``configs/6843_RadVel_ods_20Hz.cfg``) over ``bench.py``'s
@@ -22,6 +23,16 @@ against the H100 SXM's published peaks, the card's name and power limit
 ``BASELINE_MEASURED.json`` records, timed on the CPU of another host (read
 only here); it is no speed-up over anything measured on the card's host.
 capon and bartlett have no reference loop: ``null``.
+
+``--metric scaling`` is the twin of ``bench.py``'s ``run_scaling``: the
+weak-scaling tables of ``parallel/scaling.measure_scaling`` at 1, 2 and 4
+ranks (NCCL where each rank has a GPU of its own, gloo otherwise), with
+``bench.py``'s keys and ``device_oversubscribed``.  Its ``value`` is the
+combined pipeline's efficiency with the feed at the largest rank count;
+where ranks outnumber the GPUs they share a card, and the number measures
+that sharing, not scaling.  It writes no ``vs_baseline``, and no link
+projection (``predicted_ici_efficiency_min`` is ``null``): that needs a
+stated link (``parallel.scaling.predict_link_efficiency``).
 
 ``--verify`` runs the port on the device over ``make_inputs(flagship, 32,
 seed=7)`` and holds it to the JAX package's outputs committed in
@@ -49,6 +60,7 @@ from mmwave_radar_processing_tpu_torch.utils import roofline, verify
 HERE = os.path.dirname(os.path.abspath(__file__))
 BASELINE_MEASURED_PATH = os.path.join(HERE, "BASELINE_MEASURED.json")
 METRICS = ("pointcloud", "velocity", "combined", "ground", "capon", "bartlett")
+SCALING_WORLD_SIZES = (1, 2, 4)
 
 #: which reference workload each metric's ``vs_baseline`` divides by
 #: (``bench.py``'s table); capon and bartlett have none
@@ -206,10 +218,37 @@ def bench_result(metric: str, timing: dict, device) -> dict:
     return result
 
 
+def run_scaling(args, device) -> dict:
+    """``bench.py``'s ``run_scaling`` line from the port's weak-scaling harness."""
+    from mmwave_radar_processing_tpu_torch.parallel.scaling import measure_scaling
+
+    table = measure_scaling(verify.flagship_config(), device_counts=SCALING_WORLD_SIZES,
+                            per_device_batch=max(1, min(args.batch, 512) // 16),
+                            iters=min(args.iters, 3), repeats=args.repeats, device=device)
+    head = table["combined_with_feed"]
+    n_max = head["devices"][-1]
+    return {
+        "metric": f"samples/s scaling efficiency 1->{n_max} ranks "
+                  "(combined pipeline incl. input feed, weak scaling)",
+        "value": head["efficiency"][-1],
+        "unit": "fraction",
+        "vs_baseline": None,
+        "input_feed_included": head["input_feed_included"][-1],
+        "core_oversubscribed": n_max > table["meta"]["physical_cores"],
+        "device_oversubscribed": head["device_oversubscribed"][-1],
+        "physical_cores": table["meta"]["physical_cores"],
+        "predicted_ici_efficiency_min": None,
+        "predicted_meets_80pct_bar": None,
+        "device": verify.device_name(device),
+        "card": card_name_and_power_limit() if device.type == "cuda" else None,
+        "table": table,
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--metric", choices=METRICS, default="pointcloud")
+    p.add_argument("--metric", choices=METRICS + ("scaling",), default="pointcloud")
     p.add_argument("--batch", type=int, default=1024)
     p.add_argument("--iters", type=int, default=60, help="calls per timed run")
     p.add_argument("--repeats", type=int, default=3,
@@ -258,6 +297,10 @@ def main(argv=None):
             "detail": args.verify_out,
         }))
         sys.exit(0 if report["ok"] else 1)
+
+    if args.metric == "scaling":
+        print(json.dumps(run_scaling(args, device)))
+        return
 
     timing = time_metric(args.metric, args.batch, args.iters, args.repeats, device=device)
     print(json.dumps(bench_result(args.metric, timing, device)))

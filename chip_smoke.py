@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map, recording and viewer paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map, recording, viewer and multi-device paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -217,7 +217,44 @@ failure (exit code != 0):
    1024-frame noise recording with odometry (~433 MB in a temporary
    directory, deleted after), split into read, device and host copy; ms a
    tick of ``process_next_frame`` served from the cache; ms a frame of the
-   per-frame fan-out of all 14 processors over 16 frames, busy share.
+   per-frame fan-out of all 14 processors over 16 frames, busy share;
+29. multi-device slice (``multidevice_slice``): ranks started by
+   ``parallel.launch.spawn`` from this process (every kernel built above
+   first; ranks only load the libraries) at world size 1 on NCCL and 2 and
+   4 on gloo, every rank on ``cuda:0`` (NCCL refuses two ranks on one
+   device; gloo's sends and receives go through pinned host buffers).  Each
+   world size is one spawn of ``parallel.rank_checks.run_rank`` at
+   ``rank_checks.full_spec``: ``shard_pipeline`` over the combined pipeline
+   on the flagship at a global batch of 1024 (seeded planes, the RANSAC
+   draws sliced per rank as the frames are), whose outputs put together
+   equal the unsharded pipeline's on this card bit for bit (counts, masks,
+   points, ``vx``, velocity); the halo CFARs (``os_cfar_2d_detect`` and
+   ``ca_cfar_2d`` on 64 maps of 256x192 at the flagship geometry, the
+   detection on 64 rows a rank x 128 at train (4,3) guard (2,1),
+   ``os_cfar_1d`` over 512 cells a rank of 1024 signals) and the
+   overlap-save zoom (1024 rows x 8192 samples, decim 4, 33 taps, 64 bins),
+   each bit-equal to the unsharded op; the element-sharded beamformer
+   (ns 63, 71,680 elements, 64 angles) within rtol 1e-5 and 1e-5 of the
+   maximum of the dense form, the snapshot-sharded Capon and Bartlett
+   (8064 x 12 antennas, 64 snapshots a rank, 64 angles) within rtol 1e-4
+   and 1e-4 of the maximum; the feed over a 4,096-frame NPY recording
+   (~1.7 GB in a temporary directory, deleted after) on a ``(data, model)``
+   mesh into the sharded combined pipeline, each rank's batches equal to a
+   straight load of its frames; the builders' errors; the dry run
+   (``parallel.dryrun.dryrun_rank``).  Each check must launch its kernels on
+   every rank: the sharded pipeline and the feed #1 and #4, the halo
+   OS-CFARs #1 (2D) and #3 (1D), the dry run all three.  The full-width
+   launches join the kernels line, the dry run's are printed apart; a
+   failing rank fails the run;
+30. multi-device throughput (``multidevice_throughput``): frames/s of the
+   sharded combined pipeline beside the bare pipeline on the same frames
+   (the wrapper's overhead) and of the feed with the pipeline, at each world
+   size; the scaling harness's tables (``parallel.scaling.scaling_table``:
+   the combined pipeline with and without the feed at 64 frames a rank, the
+   halo CFAR, the bare halo exchange and all-reduce, the snapshot-sharded
+   Capon; medians of 3 runs, the slowest rank), each row flagged
+   ``device_oversubscribed``.  Ranks that share one card measure its
+   sharing: no row is a scaling figure.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -244,6 +281,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from mmwave_radar_processing_tpu_torch.ops.kernels import count_launches
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_CFG = os.path.join(HERE, "configs", "6843_RadVel_ods_20Hz.cfg")
@@ -457,6 +496,20 @@ VIEWER_PARAM_SETS = {"shipped": VIEWER_PARAMS_SHIPPED, "full": VIEWER_PARAMS_FUL
 #: the viewer phases: a simulated recording for correctness, a noise recording
 #: of 1024 frames for the precompute's time, frames of the per-frame fan-out
 VIEWER_FRAMES, VIEWER_THROUGHPUT_FRAMES, VIEWER_FAN_OUT_FRAMES = 32, 1024, 16
+MULTIDEVICE_WORLDS = (1, 2, 4)
+#: the kernels each rank's multi-device checks must launch: the sharded
+#: combined pipeline (also under the feed) #1's compacting entry and #4, the
+#: halo OS-CFAR 2D #1's mask entry, the halo OS-CFAR 1D #3; the dry run all three
+MULTIDEVICE_PIPELINE_KERNELS = ("os_cfar_2d_detect", "doppler_az_responses")
+MULTIDEVICE_HALO_KERNELS = {"os_cfar_2d_detect": ("os_cfar_2d_detect",),
+                            "os_cfar_1d": ("kth_smallest",), "ca_cfar_2d": ()}
+MULTIDEVICE_KERNELS = ("os_cfar_2d_detect", "kth_smallest", "doppler_az_responses")
+#: the sharded pipeline's outputs that must equal the unsharded pipeline's bit for bit
+MULTIDEVICE_PIPELINE_KEYS = ("points", "valid", "count", "vx", "velocity")
+#: (rtol, atol as a share of the map's maximum) of the sharded beamformers against the dense form
+MULTIDEVICE_BEAMFORMER_BARS = {"beamformer": (1e-5, 1e-5), "capon": (1e-4, 1e-4),
+                               "bartlett": (1e-4, 1e-4)}
+MULTIDEVICE_TIMEOUT = 600
 
 
 def emit(**fields):
@@ -1765,30 +1818,6 @@ def check_velocity_api(cfg, device):
             raise RuntimeError(f"velocity API ({mode}): non-finite estimates on the GPU")
 
 
-def kernel_wrappers():
-    """Every hand-written kernel's wrapper (each counts its launches), by name."""
-    from mmwave_radar_processing_tpu_torch.ops.kernels import (
-        altitude_track, beamform, doppler_az, os_cfar, rank_select,
-    )
-
-    return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect, "os_cfar_2d_noise":
-            os_cfar.os_cfar_2d_noise, "kth_smallest": rank_select.kth_smallest,
-            "doppler_az_responses": doppler_az.doppler_az_responses,
-            "capon_power": beamform.capon_power, "bartlett_power": beamform.bartlett_power,
-            "altitude_track": altitude_track.altitude_track}
-
-
-def count_launches(fn):
-    """Run ``fn`` with every launch count at 0: ``(its result, {kernel: launches})``."""
-    wrappers = kernel_wrappers()
-    torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {name: w.launches for name, w in wrappers.items()}
-
-
 def no_kernel_launched(phase, fn):
     """Run ``fn`` with every launch count at 0 and raise if a hand-written kernel ran.
 
@@ -2431,7 +2460,6 @@ def check_recording_slice(cfg, device, dataset):
          library=os.path.relpath(native_loader.library_path(), HERE))
 
     batches = -(-n // batch)
-    wrappers = kernel_wrappers()
     launches = {}
     for mode in RECORDING_MODES:
         cpu_pipe = build_recording_pipeline(cfg, mode, device="cpu")
@@ -2439,14 +2467,11 @@ def check_recording_slice(cfg, device, dataset):
         gumbel = (cpu_pipe.velocity.draw_gumbel(batch, torch.Generator().manual_seed(RANSAC_SEED))
                   if mode == "2d" else None)
         kw = dict(mode=mode, batch=batch, gumbel=gumbel)
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
         timer = StageTimer()
-        gpu = process_recording(dataset, cfg, device=device, pipeline=gpu_pipe, timer=timer,
-                                loader_threads=LOADER_THREADS, **kw)
-        torch.cuda.synchronize()
-        launches[mode] = {name: w.launches for name, w in wrappers.items() if w.launches}
+        gpu, counts = count_launches(lambda: process_recording(
+            dataset, cfg, device=device, pipeline=gpu_pipe, timer=timer,
+            loader_threads=LOADER_THREADS, **kw))
+        launches[mode] = {name: n for name, n in counts.items() if n}
         cpu = process_recording(dataset, cfg, device="cpu", pipeline=cpu_pipe,
                                 backend="numpy", **kw)
         if sorted(gpu) != sorted(cpu) or any(
@@ -3012,6 +3037,156 @@ def add_launches(totals, launched):
         totals[name] = totals.get(name, 0) + n
 
 
+def multidevice_agreement(spec, got, want):
+    """``{check: report}`` of the ranks' outputs put together against the unsharded ops on the card.
+
+    The halo CFARs, the overlap-save zoom and the sharded pipeline's
+    ``MULTIDEVICE_PIPELINE_KEYS`` must be bit-equal; the beamformers within
+    ``MULTIDEVICE_BEAMFORMER_BARS`` of the dense form.
+    """
+    report = {}
+    required = ([f"pipeline/{k}" for k in MULTIDEVICE_PIPELINE_KEYS]
+                + [case["name"] for case in spec["halo"]] + ["zoom"])
+    for name in want:
+        if name in MULTIDEVICE_BEAMFORMER_BARS:
+            continue
+        same = bool(got[name].shape == want[name].shape and np.array_equal(got[name], want[name]))
+        report[name] = {"bit_equal": same, "required": name in required, "ok": same
+                        or name not in required}
+    for name, (rtol, share) in MULTIDEVICE_BEAMFORMER_BARS.items():
+        top = float(np.abs(want[name]).max())
+        err = np.abs(got[name].astype(np.complex128) - want[name])
+        ok = bool(np.all(err <= share * top + rtol * np.abs(want[name])))
+        report[name] = {"max_abs_err": float(err.max()), "max": top, "rtol": rtol,
+                        "atol": share * top, "ok": ok}
+    return report
+
+
+def multidevice_rank_launches(phase, spec, rank):
+    """One rank's kernel launches at full width: its sharded calls and the feed's pipeline.
+
+    Each check must have launched its own kernels on this rank
+    (``MULTIDEVICE_PIPELINE_KERNELS``, ``MULTIDEVICE_HALO_KERNELS``), and the
+    dry run its three; the dry run's launches, at its cut shapes, are not
+    among those returned.
+    """
+    where = f"{phase}, rank {rank['rank']}"
+    launches = rank["launches"]
+    require_launched(f"{where}, pipeline", launches["pipeline"], MULTIDEVICE_PIPELINE_KERNELS)
+    for case in spec["halo"]:
+        require_launched(f"{where}, {case['name']}", launches[case["name"]],
+                         MULTIDEVICE_HALO_KERNELS[case["op"]])
+    require_launched(f"{where}, feed", rank["feed"]["launches"], MULTIDEVICE_PIPELINE_KERNELS)
+    require_launched(f"{where}, dry run", rank["dryrun"]["launches"], MULTIDEVICE_KERNELS)
+    totals = {}
+    for launched in launches.values():
+        add_launches(totals, launched)
+    add_launches(totals, rank["feed"]["launches"])
+    return totals
+
+
+def check_multidevice_world(device, card, world, root, feed_dir):
+    """One spawn of ``world`` ranks for phase ``multidevice_slice``; returns ``(launches, ranks)``."""
+    from mmwave_radar_processing_tpu_torch.parallel import rank_checks
+    from mmwave_radar_processing_tpu_torch.parallel.launch import default_backend, spawn
+
+    phase = f"multidevice_slice (world {world})"
+    spec = rank_checks.full_spec(world, feed_dir)
+    sub = os.path.join(root, f"world{world}")
+    os.makedirs(sub)
+    arrays = rank_checks.write_inputs(sub, spec)
+    backend = default_backend(world, device)
+    t0 = time.perf_counter()
+    ranks = spawn(rank_checks.run_rank, world, backend=backend, device=device,
+                  args=(sub, spec), timeout=MULTIDEVICE_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    want = rank_checks.unsharded(spec, arrays, device)
+    got = rank_checks.assemble(spec, ranks)
+    del arrays
+    report = multidevice_agreement(spec, got, want)
+    launched, dryrun_launched = {}, {}
+    for r in ranks:
+        add_launches(launched, multidevice_rank_launches(phase, spec, r))
+        add_launches(dryrun_launched, r["dryrun"]["launches"])
+    model = 2 if world % 2 == 0 else 1
+    per_row = spec["feed"]["global_batch"] // (world // model)
+    feed_ok = all(r["feed"]["equal"] == [True] * (spec["feed"]["frames"]
+                                                   // spec["feed"]["global_batch"])
+                  and r["feed"]["outputs_finite"]
+                  and r["feed"]["share"] == (r["feed"]["coords"][0] * per_row,
+                                             (r["feed"]["coords"][0] + 1) * per_row)
+                  for r in ranks)
+    errors_ok = all(message is not None or (name == "zoom_n_divides" and world == 1)
+                    for r in ranks for name, message in r["errors"].items())
+    emit(phase="multidevice_slice", world=world, backend=backend,
+         p2p_staging="pinned host buffers (gloo sends host tensors only)"
+         if backend == "gloo" and device.type == "cuda" else "none",
+         ranks_on=sorted({r["device"] for r in ranks}), spawn_seconds=spawn_s,
+         agreement=report, feed_ok=feed_ok, errors_ok=errors_ok,
+         feed=[{k: r["feed"][k] for k in ("share", "coords", "batches", "frames", "equal")}
+               for r in ranks],
+         dryrun=ranks[0]["dryrun"]["shapes"], launches=launched,
+         dryrun_launches=dryrun_launched, card=card)
+    failed = [name for name, entry in report.items() if not entry["ok"]]
+    if failed or not feed_ok or not errors_ok:
+        raise RuntimeError(f"{phase}: disagrees on {failed}, feed ok {feed_ok}, "
+                           f"errors ok {errors_ok}")
+    return launched, ranks
+
+
+def check_multidevice(device, card):
+    """Phases ``multidevice_slice`` and ``multidevice_throughput``; returns the kernels' launches.
+
+    World size 1 on NCCL, 2 and 4 on gloo with every rank on ``cuda:0``
+    (NCCL refuses two ranks on one device): ranks that share one card
+    measure its oversubscription, so no figure here is a scaling figure.
+    """
+    from mmwave_radar_processing_tpu_torch.parallel import rank_checks
+    from mmwave_radar_processing_tpu_torch.parallel.scaling import (
+        scaling_table, write_feed_frames,
+    )
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    totals, per_n, timing = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multidevice_") as root:
+        feed_dir = os.path.join(root, "feed")
+        t0 = time.perf_counter()
+        feed = rank_checks.full_spec(1, feed_dir)["feed"]
+        paths = write_feed_frames(feed_dir, feed["frame_shape"], feed["frames"])
+        emit(phase="multidevice_slice", feed_frames=len(paths),
+             feed_bytes=sum(os.path.getsize(p) for p in paths),
+             write_seconds=time.perf_counter() - t0)
+        for world in MULTIDEVICE_WORLDS:
+            launched, ranks = check_multidevice_world(device, card, world, root, feed_dir)
+            add_launches(totals, launched)
+            per_n[world] = (ranks[0]["backend"], [r["scaling"] for r in ranks])
+            timing[world] = ranks
+    spec = rank_checks.full_spec(1, "")
+    batch, frames = spec["pipeline"]["batch"], spec["feed"]["frames"]
+    for world, ranks in timing.items():
+        sharded = max(r["seconds"]["pipeline_sharded"] for r in ranks)
+        bare = max(r["seconds"]["pipeline_bare"] for r in ranks)
+        feed = max(r["feed"]["seconds"] for r in ranks)
+        emit(phase="multidevice_throughput", world=world, backend=ranks[0]["backend"],
+             device_oversubscribed=world > torch.cuda.device_count(),
+             combined_sharded_frames_per_s=batch / sharded,
+             combined_bare_frames_per_s=batch / bare, wrapper_overhead=sharded / bare - 1,
+             feed_with_combined_frames_per_s=frames / feed, card=card)
+    table = scaling_table(per_n, per_device_batch=spec["scaling"]["per_device_batch"],
+                          device=device)
+    for name, entry in table.items():
+        if name == "meta":
+            continue
+        for i in range(len(entry["devices"])):
+            row = {k: v[i] for k, v in entry.items() if isinstance(v, list)}
+            emit(phase="multidevice_throughput", table=name, **row, card=card)
+    emit(phase="multidevice_throughput", meta=table["meta"],
+         halo_bytes_per_dev=table["halo_cfar_2d"]["halo_bytes_per_dev"],
+         psum_bytes_per_dev=table["capon_snapshot"]["psum_bytes_per_dev"], card=card,
+         note="no scaling figure: ranks at world sizes 2 and 4 share one card")
+    return totals
+
+
 def check_bench_entry(cfg, device):
     """``bench_torch.py`` as a user runs it, then its timing function for every metric.
 
@@ -3166,6 +3341,7 @@ def main():
         build_point_cloud_pipeline, build_velocity_pipeline, load_cfg, make_inputs,
     )
 
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     card = gpu_name_and_power_limit()
     emit(phase="environment", card=card, torch=torch.__version__,
@@ -3213,6 +3389,7 @@ def main():
     verify_launches = check_verify_vs_jax(device)
     detector_launches = check_verify_detectors(device)
     bench_launches = check_bench_entry(cfg, device)
+    multidevice_launches = check_multidevice(device, card)
     entry_launches = {}
     for launched in (verify_launches, detector_launches, bench_launches):
         add_launches(entry_launches, launched)
@@ -3265,14 +3442,18 @@ def main():
     rec_resp = rec_launches["2d"].get("doppler_az_responses", 0)
     # the entry points of bench_torch.py, run_verify and the detector twin add theirs
     entry_resp = entry_launches.get("doppler_az_responses", 0)
+    # the multi-device phases' ranks add theirs (#1, #3, #4), the dry run's aside
+    multi_resp = multidevice_launches.get("doppler_az_responses", 0)
+    emit(phase="total", seconds=time.perf_counter() - started, card=card)
     all_resp = (vel_launches["coarse"] + vel_launches["precise"] + comb_launches[1] + rec_resp
-                + entry_resp)
+                + entry_resp + multi_resp)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "os_cfar_2d_detect", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": launches + comb_launches[0] + rec_cfar
-         + entry_launches.get("os_cfar_2d_detect", 0) + viewer_launches["detect"],
+         + entry_launches.get("os_cfar_2d_detect", 0) + viewer_launches["detect"]
+         + multidevice_launches.get("os_cfar_2d_detect", 0),
          # the paths launch its compacting entry, whose times these are; the
          # mask entry's (the detector classes' and the cross-check's) are under "mask_entry"
          "max_abs_err": max_err, **cfar_ms},
@@ -3284,11 +3465,12 @@ def main():
                    + viewer_launches["noise"],
                    noise_err, noise_ms),
         rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches
-                   + entry_launches.get("kth_smallest", 0) + viewer_launches["kth"], kth_err,
+                   + entry_launches.get("kth_smallest", 0) + viewer_launches["kth"]
+                   + multidevice_launches.get("kth_smallest", 0), kth_err,
                    {**kth_ms["narrow"], "wide": kth_ms["wide"]}),
         response_entry("set_responses_pallas_batch", "coarse",
-                       vel_launches["coarse"] + comb_launches[1] + rec_resp + entry_resp,
-                       "flagship"),
+                       vel_launches["coarse"] + comb_launches[1] + rec_resp + entry_resp
+                       + multi_resp, "flagship"),
         response_entry("set_responses_pallas", "zoom", vel_launches["precise"],
                        "zoom"),
         response_entry("group_responses_pallas_batch", "group", all_resp, "group"),

@@ -12,11 +12,30 @@
   ground detector's gated tail and the DBS stage.
 - ``recording``         — a CPSL recording served batch by batch through the
   combined, point-cloud or ground pipeline (imported as a module).
+
+The multi-device layer runs one process a rank on ``torch.distributed``
+(each imported as a module, apart from the three exports below):
+
+- ``launch``            — ``spawn``: ranks through a file store, results and
+  tracebacks back to the caller; the backend rule (NCCL or gloo).
+- ``mesh``              — ``make_mesh`` (a named ``DeviceMesh``) and the
+  rank's share of a global batch; ``collectives`` — the halo shifts and
+  ``psum`` on one axis's group, with gloo's host staging.
+- ``halo_cfar``, ``overlap_save``, ``sharded_beamform`` — CFAR with a halo
+  exchange, the overlap-save zoom (``build_sharded_zoom_fir``), element- and
+  snapshot-sharded beamforming.
+- ``pipeline.shard_pipeline`` — a frame-batched pipeline on the rank's
+  frames; ``input_feed`` — each rank's own NPY loads.
+- ``scaling``, ``dryrun``, ``rank_checks`` — the weak-scaling harness, one
+  step of the whole program, and the checks that the tests and
+  ``chip_smoke.py`` run on every rank.
 """
 
+from mmwave_radar_processing_tpu_torch.parallel.mesh import make_mesh
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import (
     PointCloudBatch,
     build_point_cloud_pipeline,
+    shard_pipeline,
 )
 from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import (
     VelocityBatch,
@@ -43,6 +62,7 @@ from mmwave_radar_processing_tpu_torch.parallel.spectral_pipeline import (
     build_spectral_maps_pipeline,
     build_strip_map_pipeline,
 )
+from mmwave_radar_processing_tpu_torch.parallel.overlap_save import build_sharded_zoom_fir
 from mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline import (
     build_dbs_viewer_stage,
     build_ground_detector_stage,
@@ -50,8 +70,11 @@ from mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline import (
 )
 
 __all__ = [
+    "make_mesh",
     "PointCloudBatch",
     "build_point_cloud_pipeline",
+    "shard_pipeline",
+    "build_sharded_zoom_fir",
     "VelocityBatch",
     "build_velocity_pipeline",
     "build_full_pipeline",

@@ -29,6 +29,7 @@ from torch import nn
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import dft
 from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect_compact
+from mmwave_radar_processing_tpu_torch.parallel.mesh import frame_slice
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     spherical_to_cartesian_flu,
@@ -258,3 +259,26 @@ def load_reference_constants(pipeline: PointCloudPipeline,
                 raise ValueError(f"{buf}: shape {tuple(value.shape)}, pipeline "
                                  f"has {tuple(target.shape)}")
             target.copy_(value)
+
+
+def shard_pipeline(pipeline, mesh, axis: str = "data"):
+    """Run a frame-batched pipeline on this rank's share of every global batch.
+
+    Frames are independent: each rank takes its own frames
+    (``mesh.frame_slice`` of the global batch), its outputs stay local, and
+    no collective runs on the hot path (JAX ``shard_pipeline``, where XLA
+    inserts none).  Returns ``fn(*args, global_batch, **kwargs)``: every
+    tensor argument, keyword arguments such as ``gumbel`` included, must
+    hold this rank's ``global_batch / axis_size`` frames on its leading axis.
+    """
+    def wrapped(*args, global_batch: int, **kwargs):
+        share = frame_slice(mesh, global_batch, axis)
+        local = share.stop - share.start
+        for name, value in [*enumerate(args), *kwargs.items()]:
+            if isinstance(value, torch.Tensor) and value.shape[:1] != (local,):
+                raise ValueError(f"argument {name}: leading axis {tuple(value.shape[:1])} is "
+                                 f"not this rank's share {local} of the global batch "
+                                 f"{global_batch}")
+        return pipeline(*args, **kwargs)
+
+    return wrapped

@@ -134,13 +134,36 @@ def test_bench_torch_prints_bench_py_line(metric):
 
 
 def test_bench_torch_refuses_scaling_and_a_missing_cuda_device():
-    r = _run(["--metric", "scaling", "--device", "cpu"])
-    assert r.returncode == 2 and "invalid choice: 'scaling'" in r.stderr
+    r = _run(["--metric", "sharding", "--device", "cpu"])
+    assert r.returncode == 2 and "invalid choice: 'sharding'" in r.stderr
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    r = _run(["--batch", "2", "--iters", "1", "--repeats", "1"])
-    assert r.returncode != 0 and not r.stdout.strip()
-    assert "no CUDA device" in r.stderr
+    for args in ([], ["--metric", "scaling"]):  # no fallback to the CPU, scaling included
+        r = _run(["--batch", "2", "--iters", "1", "--repeats", "1", *args])
+        assert r.returncode != 0 and not r.stdout.strip()
+        assert "no CUDA device" in r.stderr
+
+
+#: ``bench.py``'s ``run_scaling`` keys
+SCALING_KEYS = {"metric", "value", "unit", "vs_baseline", "input_feed_included",
+                "core_oversubscribed", "physical_cores", "predicted_ici_efficiency_min",
+                "predicted_meets_80pct_bar", "table"}
+
+
+def test_bench_torch_scaling_prints_run_scaling_line():
+    r = _run(["--device", "cpu", "--metric", "scaling", "--batch", "16", "--iters", "1",
+              "--repeats", "1"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert SCALING_KEYS | {"device_oversubscribed", "card", "device"} <= set(out)
+    assert out["vs_baseline"] is None and out["unit"] == "fraction"
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["input_feed_included"] is True and out["value"] > 0
+    table = out["table"]
+    assert table["combined_with_feed"]["devices"] == [1, 2, 4]
+    assert table["ppermute_halo_rows"]["devices"] == [2, 4]
+    assert table["meta"]["per_device_batch"] == 1
+    assert out["predicted_ici_efficiency_min"] is None  # no link is stated
 
 
 def test_bench_torch_shares_bench_py_constants_and_baselines():

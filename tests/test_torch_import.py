@@ -141,7 +141,13 @@ import importlib, pkgutil
 walked = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in walked:
     importlib.import_module(name)
-assert len(walked) >= 73, walked
+assert len(walked) >= 84, walked
+assert {"mmwave_radar_processing_tpu_torch.parallel." + name for name in (
+    "launch", "mesh", "collectives", "halo_cfar", "overlap_save", "sharded_beamform",
+    "input_feed", "scaling", "dryrun", "rank_checks")} <= set(walked)
+assert "mmwave_radar_processing_tpu_torch.ops.zoom_fir" in walked
+from mmwave_radar_processing_tpu_torch.parallel import (
+    build_sharded_zoom_fir, make_mesh, shard_pipeline)
 assert {"mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline",
         "mmwave_radar_processing_tpu_torch.visualization.controller",
         "mmwave_radar_processing_tpu_torch.visualization.precompute",
