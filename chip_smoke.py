@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map, recording, viewer and multi-device paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's point-cloud, velocity, combined, beamforming, detector-API, ground-scan, velocity-object-API, spectral-map, recording, viewer, drawing and multi-device paths, its verify leg against the JAX oracle and its bench entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -254,7 +254,28 @@ failure (exit code != 0):
    halo CFAR, the bare halo exchange and all-reduce, the snapshot-sharded
    Capon; medians of 3 runs, the slowest rank), each row flagged
    ``device_oversubscribed``.  Ranks that share one card measure its
-   sharing: no row is a scaling figure.
+   sharing: no row is a scaling figure;
+31. drawing slice (``drawing_slice``), after phase 28: (a) the device
+   halves (``compute_frame_panels``) of the three movie generators
+   (dashboard, odometry, synthetic aperture) over a 32-frame ground
+   recording of phase 21's kind, on the card and on the CPU port: maps at
+   rtol ``MAP_RTOL`` and atol 1e-4 times the maximum, the altitude within
+   ``ALTITUDE_ATOL``, the velocity within ``VELOCITY_ATOL`` on all frames
+   but one (the same RANSAC draws), the synthetic aperture's gates
+   identical; (b) the payload stream ``VideoExporter.frame_payloads``
+   hands the views, for all 14 processors under the shipped YAML over the
+   viewer recording of phase 27, per frame and from the precompute, at
+   ``payloads_agree``'s bars; (c) the fan-out launches #2, #3, #7 and #9,
+   the odometry movie's point clouds #2; (d) where matplotlib and imageio
+   import on this host, a 16-frame export of the default views, timed
+   (frames/s; ms a frame of device and copy, drawing, encoding), else a
+   line that says why it did not run;
+32. angle accuracy (``angle_accuracy``):
+   ``scripts/torch_measure_angle_accuracy.py``'s 256 planted frames (seed
+   99) through the point-cloud pipeline on the card and on the CPU port:
+   each device's angle error against the truth printed (not gated: the
+   matching ignores angle wrap), and at most ``MAX_ANGLE_FLIP_SHARE`` of
+   the matched frames an angle bin apart or matched on one device only.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
 13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
@@ -496,6 +517,19 @@ VIEWER_PARAM_SETS = {"shipped": VIEWER_PARAMS_SHIPPED, "full": VIEWER_PARAMS_FUL
 #: the viewer phases: a simulated recording for correctness, a noise recording
 #: of 1024 frames for the precompute's time, frames of the per-frame fan-out
 VIEWER_FRAMES, VIEWER_THROUGHPUT_FRAMES, VIEWER_FAN_OUT_FRAMES = 32, 1024, 16
+#: the drawing slice: the movie generators' frames (a ground recording), and the
+#: frames of the timed export (the viewer recording, the shipped YAML)
+DRAWING_FRAMES, DRAWING_EXPORT_FRAMES = 32, 16
+#: the odometry movie's altimeter and points estimator: the analyzer
+#: configuration's (VELOCITY_ANALYSIS_PARAMS) for the same ground recording;
+#: its point clouds come from the 2D detector with the flagship's OS-CFAR
+DRAWING_ALTIMETER = dict(min_altitude_m=0.25, zoom_search_region_m=0.2,
+                         altitude_search_limit_m=0.4, range_bias=0.0)
+DRAWING_POINTS_VELOCITY = dict(min_R2_threshold=0.2, min_inlier_percent=0.5)
+#: the synthetic-aperture movie's gate, wide enough for the recording's
+#: steady ego velocity RECORDING_EGO; the first frame's history still fails it
+DRAWING_SA = dict(num_frames=2, min_vel=(0.0, 0.0, 0.0), max_vel=(1.0, 0.5, 0.2),
+                  max_vel_stdev=(0.1, 0.1, 0.1))
 MULTIDEVICE_WORLDS = (1, 2, 4)
 #: the kernels each rank's multi-device checks must launch: the sharded
 #: combined pipeline (also under the feed) #1's compacting entry and #4, the
@@ -3026,6 +3060,295 @@ def measure_viewer_throughput(cfg, device):
     del raw_re, raw_im
 
 
+def movie_generators(cfg, device, dataset):
+    """The three movie generators over ``dataset``, each with fresh processors on ``device``.
+
+    No plotter: only their device halves (``compute_frame_panels``) run
+    here, which draw nothing and need no matplotlib.
+    """
+    from mmwave_radar_processing_tpu_torch import (
+        Altimeter, PointCloudGenerator, RangeDopplerProcessor, VirtualArrayReformatter,
+    )
+    from mmwave_radar_processing_tpu_torch.plotting import (
+        MmWaveDataMovieGenerator, OdometryMovieGenerator, SyntheticArrayMovieGenerator,
+    )
+    from mmwave_radar_processing_tpu_torch.point_cloud_processing import VelocityEstimator
+    from mmwave_radar_processing_tpu_torch.processors import (
+        DopplerAzimuthProcessor, MicroDopplerProcessor, RangeAngleProcessor,
+        SyntheticArrayBeamformerProcessor,
+    )
+
+    reformatter = VirtualArrayReformatter(cfg, device=device)
+    processors = {"range_doppler": RangeDopplerProcessor(cfg, device=device),
+                  "range_angle": RangeAngleProcessor(cfg, device=device),
+                  "micro_doppler": MicroDopplerProcessor(cfg, device=device),
+                  "doppler_azimuth": DopplerAzimuthProcessor(cfg, device=device),
+                  "zoomed_doppler_azimuth": DopplerAzimuthProcessor(cfg, device=device)}
+    return {
+        "mmwave": MmWaveDataMovieGenerator(cfg, dataset, None, processors,
+                                           reformatter=reformatter),
+        "odometry": OdometryMovieGenerator(
+            cfg, dataset, Altimeter(cfg, **DRAWING_ALTIMETER, device=device), None,
+            reformatter=reformatter,
+            velocity_estimator=VelocityEstimator(cfg, **DRAWING_POINTS_VELOCITY, device=device),
+            point_cloud_generator=PointCloudGenerator(
+                cfg, AZ_IDXS, EL_IDXS, detector_params=dict(cfar_type="os_cfar_2d",
+                                                            cfar_params=CFAR_PARAMS),
+                device=device)),
+        "synthetic_array": SyntheticArrayMovieGenerator(
+            cfg, dataset, SyntheticArrayBeamformerProcessor(cfg, **DRAWING_SA, device=device),
+            None),
+    }
+
+
+def host_arrays_agree(got, want, what):
+    """Two host arrays at the maps' bar (float), or equal (integer, boolean); complex as pairs of reals; returns max |diff| over max |want|."""
+    if got is None or want is None:
+        if not (got is None and want is None):
+            raise RuntimeError(f"{what}: one side is None")
+        return 0.0
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise RuntimeError(f"{what}: shape {got.shape}, expected {want.shape}")
+    if not np.issubdtype(want.dtype, np.inexact):
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"{what}: values differ")
+        return 0.0
+    if np.iscomplexobj(want):
+        got, want = (np.stack([x.real, x.imag], -1) for x in (got, want))
+    finite = np.isfinite(want)
+    if not np.array_equal(finite, np.isfinite(got)):
+        raise RuntimeError(f"{what}: finite cells differ")
+    if not want.size or not finite.any():
+        return 0.0
+    g, w = torch.from_numpy(got[finite].astype(np.float64)), torch.from_numpy(
+        want[finite].astype(np.float64))
+    return maps_agree(g, w, MAP_RTOL, 1e-4, what) / max(float(w.abs().max()), 1e-30)
+
+
+def movie_panels_agree(name, gpu, cpu, ms_per_frame):
+    """One movie's panels over the recording, card vs CPU port; emits and returns a summary.
+
+    Maps at the spectral bar (rtol ``MAP_RTOL``, atol 1e-4 of the maximum);
+    the zoomed map on its valid rows; the altitude within ``ALTITUDE_ATOL``;
+    the velocity within ``VELOCITY_ATOL`` on all frames but one (the velocity
+    API's gate, the same RANSAC draws on both sides); the synthetic
+    aperture's gates identical.
+    """
+    n = len(cpu)
+    worst, vel_agree, alt_err, gated = 0.0, 0, 0.0, 0
+    for i, (g, c) in enumerate(zip(gpu, cpu)):
+        for key, want in c.items():
+            got, what = g[key], f"drawing {name} {key} frame {i}"
+            if key == "altitude":
+                alt_err = max(alt_err, abs(got - want))
+            elif key == "velocity":
+                vel_agree += int(np.abs(got - want).max() <= VELOCITY_ATOL)
+            elif key == "zoomed_doppler_azimuth":
+                rows = c["zoomed_vel_valid"][:, None]
+                worst = max(worst, host_arrays_agree(np.where(rows, got, 0.0),
+                                                     np.where(rows, want, 0.0), what))
+            elif key == "response" and got.size != want.size:
+                raise RuntimeError(f"{what}: the velocity gates differ")
+            else:
+                worst = max(worst, host_arrays_agree(got, want, what))
+        gated += int(name == "synthetic_array" and c["response"].size == 0)
+    summary = dict(frames=n, max_map_err_of_max=worst, ms_per_frame=ms_per_frame,
+                   limited_by="host")
+    if name == "odometry":
+        velocity = np.array([c["velocity"] for c in cpu])
+        summary.update(altitude_max_abs_diff=alt_err, velocity_frames_agreeing=vel_agree,
+                       velocity_nonzero_frames=int(np.count_nonzero(velocity[:, 0])),
+                       altitude_range=[min(c["altitude"] for c in cpu),
+                                       max(c["altitude"] for c in cpu)])
+        if alt_err > ALTITUDE_ATOL:
+            raise RuntimeError(f"drawing {name}: the altitude differs by {alt_err}")
+        if vel_agree < n - 1:
+            raise RuntimeError(f"drawing {name}: velocity agrees on only {vel_agree} of {n}")
+        if summary["velocity_nonzero_frames"] < n // 2:
+            raise RuntimeError(f"drawing {name}: too few velocity estimates: a vacuous check")
+    if name == "synthetic_array":
+        summary["gated_out_frames"] = gated
+        if gated in (0, n):
+            raise RuntimeError(f"drawing {name}: the gate took one branch on every frame")
+    emit(phase="drawing_slice", path=f"movie_{name}", **summary)
+    return summary
+
+
+def payload_streams_agree(name, gpu, cpu, ms_per_frame):
+    """The exporter's payload streams (``[(frame, {key: payload})]``), card vs CPU port, at ``payloads_agree``'s bars.
+
+    Maps (and thresholds, finite cells alike) at rtol ``MAP_RTOL`` and atol
+    1e-4 of the maximum on every frame; the altitude within
+    ``ALTITUDE_ATOL``; each key's detections identical and points within
+    ``DETECTOR_POINTS_ATOL`` on at least ``MIN_AGREEING_FRAMES`` frames.
+    """
+    worst, alt_err, agreeing = 0.0, 0.0, {}
+    for (i, g), (j, c) in zip(gpu, cpu):
+        if i != j or set(g) != set(c):
+            raise RuntimeError(f"drawing {name} frame {j}: keys {sorted(g)}, expected {sorted(c)}")
+        for key, payload in c.items():
+            same = True
+            for attr, want in payload.items():
+                got, what = g[key][attr], f"drawing {name} {key}.{attr} frame {j}"
+                if key == "altimeter" and attr == "data":
+                    alt_err = max(alt_err, abs(float(got) - float(want)))
+                elif attr == "data" and key == "point_cloud_generator":
+                    same &= got.shape == want.shape and bool(
+                        (np.abs(got - want) <= DETECTOR_POINTS_ATOL).all())
+                elif want is not None and not np.issubdtype(np.asarray(want).dtype, np.inexact):
+                    same &= np.array_equal(got, want)
+                else:
+                    worst = max(worst, host_arrays_agree(got, want, what))
+            agreeing[key] = agreeing.get(key, 0) + int(same)
+    n = len(cpu)
+    emit(phase="drawing_slice", path=f"exporter_payloads_{name}", frames=n,
+         keys=len(agreeing), max_map_err_of_max=worst, altitude_max_abs_diff=alt_err,
+         frames_agreeing=agreeing, device_and_copy_ms_per_frame=ms_per_frame)
+    if alt_err > ALTITUDE_ATOL:
+        raise RuntimeError(f"drawing {name}: the altitude differs by {alt_err}")
+    short = {k: v for k, v in agreeing.items() if v < min(MIN_AGREEING_FRAMES, n)}
+    if short:
+        raise RuntimeError(f"drawing {name}: detections or points agree on too few frames: {short}")
+
+
+def exporter_payloads(device, root, cache):
+    """Every frame's payloads as ``VideoExporter`` hands them to its views, for every processor of the shipped YAML.
+
+    Returns ``(stream, launches, ms a frame of the stream)``; the ms leave
+    out the controller's set-up and the precompute's build.
+    """
+    from mmwave_radar_processing_tpu_torch.visualization.video_exporter import VideoExporter
+
+    ctl = viewer_controller(device, root, VIEWER_PARAMS_SHIPPED)
+    built = count_launches(ctl.enable_precomputed_playback)[1] if cache else {}
+    exporter = VideoExporter(ctl, view_keys=list(ctl.processors))
+    t0 = time.perf_counter()
+    stream, launched = count_launches(lambda: list(exporter.frame_payloads()))
+    ms = (time.perf_counter() - t0) / len(stream) * 1e3
+    add_launches(launched, built)
+    return stream, launched, ms
+
+
+def render_export(device, root, frames=DRAWING_EXPORT_FRAMES):
+    """An end-to-end export of ``frames`` frames of the shipped YAML's default views on ``device``, timed; its launches.
+
+    Runs only where matplotlib and imageio import on this host; otherwise
+    prints why it did not run.  No exception of the render is caught.
+    """
+    from mmwave_radar_processing_tpu_torch.visualization.video_exporter import VideoExporter
+
+    missing = []
+    for name in ("matplotlib", "imageio"):
+        try:
+            __import__(name)
+        except ImportError as exc:
+            missing.append(f"{name}: {exc}")
+    if missing:
+        emit(phase="drawing_slice", render="not run", reason="; ".join(missing))
+        return {}
+    ctl = viewer_controller(device, root, VIEWER_PARAMS_SHIPPED)
+    exporter = VideoExporter(ctl)
+    out = os.path.join(root, "export.mp4")
+    exporter.export(out, 0, 2)  # warm-up: the fan-out's and the canvas's first calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written, launched = count_launches(lambda: exporter.export(out, 0, frames))
+    seconds = time.perf_counter() - t0
+    tm = exporter.timings
+    files = [f for f in os.listdir(root) if f.startswith("export.")]
+    emit(phase="drawing_slice", render="ran", frames=written, views=exporter.view_keys,
+         files=files, bytes=sum(os.path.getsize(os.path.join(root, f)) for f in files),
+         frames_per_s=written / seconds,
+         ms_per_frame={"total": seconds / written * 1e3,
+                       "device_and_copy": tm["device_and_copy_s"] / written * 1e3,
+                       "draw": tm["draw_s"] / written * 1e3,
+                       "encode": tm["encode_s"] / written * 1e3},
+         launches=launched)
+    if written != frames:
+        raise RuntimeError(f"drawing export: wrote {written} of {frames} frames")
+    return launched
+
+
+def check_drawing_slice(cfg, device):
+    """The drawing side's device halves on the card against the CPU port, and an export where matplotlib runs.
+
+    (a) the three movie generators' ``compute_frame_panels`` over a 32-frame
+    ground recording; (b) the payload stream ``VideoExporter`` hands its
+    views under the shipped YAML, per frame and from the precompute; (c)
+    the kernels of each path launched; (d) the timed export.  Returns the
+    launches by TPU kernel, as ``check_viewer_slice`` does.
+    """
+    totals = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drawing_") as root:
+        dataset = write_recording_slice(cfg, os.path.join(root, "ground"), frames=DRAWING_FRAMES)
+        for name in ("mmwave", "odometry", "synthetic_array"):
+            gen = movie_generators(cfg, device, dataset)[name]
+            t1 = time.perf_counter()
+            gpu, launched = count_launches(
+                lambda: [gen.compute_frame_panels(i) for i in range(DRAWING_FRAMES)])
+            ms = (time.perf_counter() - t1) / DRAWING_FRAMES * 1e3
+            ref = movie_generators(cfg, "cpu", dataset)[name]
+            cpu = [ref.compute_frame_panels(i) for i in range(DRAWING_FRAMES)]
+            movie_panels_agree(name, gpu, cpu, ms)
+            if name == "odometry":
+                require_launched("drawing odometry movie", launched, ("os_cfar_2d_noise",))
+            add_launches(totals, launched)
+
+        viewer_root = write_viewer_recording(cfg, os.path.join(root, "viewer"))
+        by_path = {}
+        for cache in (False, True):
+            gpu, launched, ms = exporter_payloads(device, viewer_root, cache)
+            cpu, _, _ = exporter_payloads("cpu", viewer_root, cache)
+            payload_streams_agree("precompute" if cache else "per_frame", gpu, cpu, ms)
+            by_path[cache] = launched
+        require_launched("drawing exporter per-frame fan-out", by_path[False],
+                         ("os_cfar_2d_noise", "kth_smallest", "capon_power", "bartlett_power"))
+        emit(phase="drawing_slice", seconds_a_to_c=time.perf_counter() - t0,
+             launches={"movies": totals, "exporter_per_frame": by_path[False],
+                       "exporter_precompute": by_path[True]})
+        rendered = render_export(device, viewer_root)
+
+    # the per-frame paths' Bartlett is #9 (the processor), the precompute's #8 (the pipeline)
+    per_frame = {}
+    for launched in (totals, by_path[False], rendered):
+        add_launches(per_frame, launched)
+    pre = by_path[True]
+    return {"detect": per_frame.get("os_cfar_2d_detect", 0) + pre["os_cfar_2d_detect"],
+            "noise": per_frame.get("os_cfar_2d_noise", 0) + pre["os_cfar_2d_noise"],
+            "kth": per_frame.get("kth_smallest", 0) + pre["kth_smallest"],
+            "capon": per_frame.get("capon_power", 0) + pre["capon_power"],
+            "bartlett_cov": pre["bartlett_power"],
+            "bartlett_snapshots": per_frame.get("bartlett_power", 0),
+            "altitude": per_frame.get("altitude_track", 0) + pre["altitude_track"]}
+
+
+def check_angle_accuracy(device):
+    """``scripts/torch_measure_angle_accuracy.py`` at 256 frames on the card and the CPU port; returns the card's launches.
+
+    Its statistics against the truth are printed, not gated; the gate is
+    the recording path's: at most ``MAX_ANGLE_FLIP_SHARE`` of the matched
+    frames an angle bin apart (or matched on one device only).
+    """
+    import runpy
+
+    twin = runpy.run_path(os.path.join(HERE, "scripts", "torch_measure_angle_accuracy.py"),
+                          run_name="imported")
+    t0 = time.perf_counter()
+    report, launched = count_launches(lambda: twin["measure"](device))
+    emit(phase="angle_accuracy", seconds=time.perf_counter() - t0, launches=launched,
+         **{k: v for k, v in report.items() if k != "measured_at"})
+    require_launched("angle accuracy", launched, ("os_cfar_2d_detect",))
+    if report["frames_matched_on_both"] < report["n_frames"] // 2:
+        raise RuntimeError(f"angle accuracy: the target matched on only "
+                           f"{report['frames_matched_on_both']} frames: a vacuous check")
+    if report["apart_share"] > MAX_ANGLE_FLIP_SHARE:
+        raise RuntimeError(f"angle accuracy: {report['apart_share']:.4f} of the matched frames "
+                           f"an angle bin apart (bar {MAX_ANGLE_FLIP_SHARE})")
+    return launched
+
+
 def require_launched(phase, launched, names):
     missing = [name for name in names if not launched.get(name)]
     if missing:
@@ -3386,6 +3709,8 @@ def main():
         rec_launches = check_recording_slice(cfg, device, recording)
         analysis_launches = check_velocity_analysis(cfg, device, recording)
     viewer_launches = check_viewer_slice(cfg, device, frames)
+    drawing_launches = check_drawing_slice(cfg, device)
+    angle_launches = check_angle_accuracy(device)
     verify_launches = check_verify_vs_jax(device)
     detector_launches = check_verify_detectors(device)
     bench_launches = check_bench_entry(cfg, device)
@@ -3453,6 +3778,7 @@ def main():
          "replaces": KERNEL_REPLACES,
          "launches": launches + comb_launches[0] + rec_cfar
          + entry_launches.get("os_cfar_2d_detect", 0) + viewer_launches["detect"]
+         + drawing_launches["detect"] + angle_launches.get("os_cfar_2d_detect", 0)
          + multidevice_launches.get("os_cfar_2d_detect", 0),
          # the paths launch its compacting entry, whose times these are; the
          # mask entry's (the detector classes' and the cross-check's) are under "mask_entry"
@@ -3462,11 +3788,12 @@ def main():
         # under "wide")
         rank_entry("os_cfar_2d_noise",
                    rank_launches["noise"] + entry_launches.get("os_cfar_2d_noise", 0)
-                   + viewer_launches["noise"],
+                   + viewer_launches["noise"] + drawing_launches["noise"],
                    noise_err, noise_ms),
         rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches
                    + entry_launches.get("kth_smallest", 0) + viewer_launches["kth"]
-                   + multidevice_launches.get("kth_smallest", 0), kth_err,
+                   + drawing_launches["kth"] + multidevice_launches.get("kth_smallest", 0),
+                   kth_err,
                    {**kth_ms["narrow"], "wide": kth_ms["wide"]}),
         response_entry("set_responses_pallas_batch", "coarse",
                        vel_launches["coarse"] + comb_launches[1] + rec_resp + entry_resp
@@ -3482,17 +3809,19 @@ def main():
         # processors
         beamform_entry("capon_power_pallas", bf_launches["capon"]
                        + bf_launches["capon_processor"] + entry_launches.get("capon_power", 0)
-                       + viewer_launches["capon"]),
+                       + viewer_launches["capon"] + drawing_launches["capon"]),
         beamform_entry("bartlett_power_pallas_cov",
                        bf_launches["bartlett"] + entry_launches.get("bartlett_power", 0)
-                       + viewer_launches["bartlett_cov"]),
+                       + viewer_launches["bartlett_cov"] + drawing_launches["bartlett_cov"]),
         beamform_entry("bartlett_power", bf_launches["bartlett_processor"]
-                       + viewer_launches["bartlett_snapshots"]),
+                       + viewer_launches["bartlett_snapshots"]
+                       + drawing_launches["bartlett_snapshots"]),
         # no TPU kernel's counterpart: the ground scan's lax.scan, one launch a call
         {"name": "altitude_track", "route": "cuda", "source": GROUND_SOURCE,
          "replaces": GROUND_REPLACES,
          "launches": ground_launches + rec_launches["ground"].get("altitude_track", 0)
-         + entry_launches.get("altitude_track", 0) + viewer_launches["altitude"],
+         + entry_launches.get("altitude_track", 0) + viewer_launches["altitude"]
+         + drawing_launches["altitude"],
          "max_abs_err": track_err, **track_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,20 @@ def as_float32(x, device: torch.device) -> torch.Tensor:
     return x.to(device, torch.float32)
 
 
+def to_host(value):
+    """A result or attribute as a host array: a tensor (CUDA or CPU) is copied to numpy, anything else goes through ``np.asarray``; ``None`` stays ``None``.
+
+    The one boundary where device results become host arrays: the viewer's
+    payloads and every plotter go through it.  A numpy array comes back as
+    it is, without a copy.
+    """
+    if value is None:
+        return None
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
 class Processor:
     """Config-bound processor with host-side history tracking."""
 

@@ -18,26 +18,16 @@ from collections import deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, load_cfg
 from mmwave_radar_processing_tpu_torch.data.cpsl_dataset import CpslDS
-from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
+from mmwave_radar_processing_tpu_torch.processors.base import resolve_device, to_host
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import VirtualArrayReformatter
 from mmwave_radar_processing_tpu_torch.utils.logger import get_logger
 from mmwave_radar_processing_tpu_torch.visualization.processor_registry import (
     ProcessorSpec,
     get_default_registry,
 )
-
-
-def to_host(value):
-    """A processor's result or attribute as a host array (``None`` stays ``None``)."""
-    if value is None:
-        return None
-    if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
-    return np.asarray(value)
 
 
 class DatasetModel:
@@ -128,6 +118,9 @@ class MmWaveRadarProcessorController:
 
     def subscribe_frame_processed(self, fn: Callable) -> None:
         self._frame_subscribers.append(fn)
+
+    def unsubscribe_view_update(self, fn: Callable) -> None:
+        self._view_subscribers.remove(fn)
 
     def subscribe_dataset_loaded(self, fn: Callable) -> None:
         self._dataset_subscribers.append(fn)
@@ -309,6 +302,20 @@ class MmWaveRadarProcessorController:
         end = end if end is not None else self.dataset_model.num_frames
         for i in range(start, end):
             self.process_next_frame(i)
+
+    def export_movie(self, out_path: str, plotter, fps: int = 20) -> int:
+        """Render the default views of every frame into a movie; returns the frames written.
+
+        ``plotter`` is accepted for the reference's signature and not used:
+        the exporter draws the first four processors' views.  (The JAX
+        package's method hands it to ``VideoExporter`` as its view keys,
+        which raises ``TypeError`` for any plotter but ``None``.)
+        """
+        from mmwave_radar_processing_tpu_torch.visualization.video_exporter import (
+            VideoExporter,
+        )
+
+        return VideoExporter(self, fps=fps).export(out_path)
 
 
 # the reference's name

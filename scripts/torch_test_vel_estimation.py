@@ -6,8 +6,8 @@ points-based RANSAC ego velocity -> per-axis error statistics against the
 odometry's ground truth, configured by a YAML analyzer configuration
 (``analyzer_configs/velocity_analysis_config.yaml`` format, with the
 frame-transformation matrices).  The processors run on ``--device``
-(default cuda; the CPU only when asked for).  The summary figure
-(``--plot-out`` of the JAX script) is not drawn here.
+(default cuda; the CPU only when asked for); ``--plot-out`` draws the
+analysis summary figure on the host.
 
 Example (from the repository root):
     python scripts/torch_simulate_dataset.py --out /tmp/sim_radvel --frames 120
@@ -67,6 +67,8 @@ def main():
     p.add_argument("--radar-config", default=None)
     p.add_argument("--start-idx", type=int, default=None)
     p.add_argument("--end-idx", type=int, default=None)
+    p.add_argument("--plot-out", default=None,
+                   help="write the analysis summary figure here")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when asked for)")
     args = p.parse_args()
@@ -91,6 +93,16 @@ def main():
     report = analyzer.generate_report()
     print("\n==== velocity error report ====")
     print(report.to_string())
+
+    if args.plot_out:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        from mmwave_radar_processing_tpu_torch.plotting import AnalysisPlotter
+
+        fig = AnalysisPlotter().plot_summary(analyzer)
+        fig.savefig(args.plot_out, dpi=100)
+        logger.info("wrote %s", args.plot_out)
     return report
 
 

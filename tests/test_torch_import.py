@@ -153,6 +153,13 @@ assert {"mmwave_radar_processing_tpu_torch.parallel.viewer_pipeline",
         "mmwave_radar_processing_tpu_torch.visualization.precompute",
         "mmwave_radar_processing_tpu_torch.visualization.processor_registry",
         "mmwave_radar_processing_tpu_torch.visualization.view_panel"} <= set(walked)
+# the drawing side: every module imports with matplotlib, imageio, yaml and Qt blocked
+assert {"mmwave_radar_processing_tpu_torch.visualization." + name for name in (
+    "views", "shell_logic", "video_exporter", "pyqtgraph_views", "qt_shell")} | {
+    "mmwave_radar_processing_tpu_torch.plotting." + name for name in (
+        "plotter_mmwave_data", "plotter_odometry", "plotter_synthetic_array",
+        "analysis_plotter", "movie_generator")} <= set(walked)
+from mmwave_radar_processing_tpu_torch.plotting import MovieGeneratorOdometry
 # the viewer's backend: the payload pipeline on the batch, the controller's registry
 from mmwave_radar_processing_tpu_torch.parallel import build_viewer_payload_pipeline
 payload = build_viewer_payload_pipeline(cfg, cfar_type="os_cfar_2d", cfar_params=dict(
@@ -163,7 +170,7 @@ assert len(get_default_registry()) == 14
 # the recording path's host layer, and the scripts that drive it (top level only)
 import runpy, glob
 scripts = sorted(glob.glob("scripts/torch_*.py"))
-assert len(scripts) == 5, scripts
+assert len(scripts) == 12, scripts
 for path in scripts + ["bench_torch.py"]:
     runpy.run_path(path, run_name="imported")
 # the verify leg against the committed JAX oracle, and the detector twin, with JAX blocked
@@ -329,12 +336,17 @@ def test_no_module_of_the_port_imports_yaml_pandas_or_imageio_at_top_level():
 @pytest.mark.parametrize("script", ["torch_process_recording.py", "torch_simulate_dataset.py",
                                     "torch_test_vel_estimation.py",
                                     "torch_test_multi_vel_estimation.py",
-                                    "torch_verify_detectors.py"])
+                                    "torch_verify_detectors.py",
+                                    "torch_launch_mmwave_viewer.py", "torch_view_radar_data.py",
+                                    "torch_doppler_beam_sharpening_demo.py",
+                                    "torch_measure_playback_rate.py",
+                                    "torch_verify_gui_logic.py", "torch_verify_unique_view.py",
+                                    "torch_measure_angle_accuracy.py"])
 def test_scripts_of_the_port_import_no_jax(script):
-    """Each ``scripts/torch_*.py`` answers ``--help`` with JAX, the JAX package and yaml blocked."""
+    """Each ``scripts/torch_*.py`` answers ``--help`` with JAX, the JAX package, yaml, matplotlib and Qt blocked."""
     blocked = ("import sys, runpy; "
                "[sys.modules.__setitem__(m, None) for m in ('jax', 'yaml', 'pandas', 'imageio', "
-               "'mmwave_radar_processing_tpu')]; "
+               "'matplotlib', 'PyQt6', 'pyqtgraph', 'mmwave_radar_processing_tpu')]; "
                f"sys.argv = ['{script}', '--help']; "
                f"runpy.run_path('scripts/{script}', run_name='__main__')")
     if script.endswith("vel_estimation.py"):  # yaml is imported in main, after the arguments
