@@ -13,6 +13,9 @@ main path of the system.  Per frame:
 6. azimuth and elevation from a zero-padded angle DFT and its argmax;
 7. conversion to cartesian FLU points; invalid rows are zero.
 
+Under ``torch.profiler`` a call is the span ``mmw.pc``, split into
+``mmw.pc.spectral`` (1-2), ``mmw.pc.cfar`` (3-4) and ``mmw.pc.aoa`` (5-7).
+
 The pipeline's state is its constants (DFT matrices, angle bins, antenna
 layout, CFAR geometry); it has no learned weights and uses no randomness.
 Precision is full float32 with TF32 off (:func:`set_full_fp32`).
@@ -34,6 +37,7 @@ from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     spherical_to_cartesian_flu,
 )
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
 
 DEFAULT_CFAR_PARAMS = dict(num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.0)
 
@@ -145,27 +149,33 @@ class PointCloudPipeline(nn.Module):
                 raise ValueError(f"input on {plane.device}, pipeline on "
                                  f"{self.rng_dft.device}")
 
-        raw = torch.complex(raw_re, raw_im)
-        if self.reformat_input:
-            R = dft.range_dft_channels(raw, self.chans, self.rng_dft,
-                                       num_rx=self.num_rx, cfgs_per_loop=self.cpl)
-        else:
-            R = torch.matmul(self.rng_dft.transpose(0, 1), raw[:, self.chans])
-        rd0 = torch.matmul(R[:, self.ch0_pos], self.dop_dft)  # [B, W, V]
-        r_i, v_i, valid, count = os_2d_detect_compact(
-            dft.cabs(rd0), self.max_dets, **self.cfar_params)
+        with annotate("mmw.pc"):
+            with annotate("mmw.pc.spectral"):
+                raw = torch.complex(raw_re, raw_im)
+                if self.reformat_input:
+                    R = dft.range_dft_channels(raw, self.chans, self.rng_dft,
+                                               num_rx=self.num_rx, cfgs_per_loop=self.cpl)
+                else:
+                    R = torch.matmul(self.rng_dft.transpose(0, 1), raw[:, self.chans])
+                rd0 = torch.matmul(R[:, self.ch0_pos], self.dop_dft)  # [B, W, V]
+                mag = dft.cabs(rd0)
+            with annotate("mmw.pc.cfar"):
+                r_i, v_i, valid, count = os_2d_detect_compact(
+                    mag, self.max_dets, **self.cfar_params)
+            del mag  # the CFAR map is not held through the angle stage
 
-        az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
-        if self.has_az or self.has_el:
-            vals = dft.rd_values(R[:, self.aoa_start:], self.dop_dft, r_i, v_i)
-        if self.has_az:
-            az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.angle_bins)
-        if self.has_el:
-            el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.angle_bins)
-        ranges = r_i.to(torch.float32) * self.range_res
-        vels = self.vel0 + v_i.to(torch.float32) * self.vel_res
-        pts = spherical_to_cartesian_flu(ranges, az, el, vels)
-        pts = torch.where(valid[..., None], pts, 0.0)
+            with annotate("mmw.pc.aoa"):
+                az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
+                if self.has_az or self.has_el:
+                    vals = dft.rd_values(R[:, self.aoa_start:], self.dop_dft, r_i, v_i)
+                if self.has_az:
+                    az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.angle_bins)
+                if self.has_el:
+                    el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.angle_bins)
+                ranges = r_i.to(torch.float32) * self.range_res
+                vels = self.vel0 + v_i.to(torch.float32) * self.vel_res
+                pts = spherical_to_cartesian_flu(ranges, az, el, vels)
+                pts = torch.where(valid[..., None], pts, 0.0)
         return PointCloudBatch(pts, valid, count)
 
 

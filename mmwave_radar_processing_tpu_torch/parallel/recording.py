@@ -31,7 +31,9 @@ caller waited for it), ``h2d`` and ``compute`` (device seconds between CUDA
 events; on the CPU, host seconds of the call); and once per run: ``wall``
 (host seconds from the first load to the last output, items = frames) and,
 on CUDA, ``device_busy`` (the union of the copy and compute streams' event
-intervals, the busy share being its total over ``wall``'s).
+intervals, the busy share being its total over ``wall``'s).  Under
+``torch.profiler`` the waits and copies are the spans ``mmw.feed.load_wait``
+and ``mmw.feed.h2d``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from mmwave_radar_processing_tpu_torch.parallel.ground_pipeline import (
 )
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import build_point_cloud_pipeline
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
-from mmwave_radar_processing_tpu_torch.utils.profiling import StageTimer
+from mmwave_radar_processing_tpu_torch.utils.profiling import StageTimer, annotate
 
 MODES = ("2d", "points", "ground")
 
@@ -169,14 +171,15 @@ def process_recording(
     while True:
         t0 = time.perf_counter()
         try:
-            re_h, im_h = next(batches)
+            with annotate("mmw.feed.load_wait"):
+                re_h, im_h = next(batches)
         except StopIteration:
             break
         b = re_h.shape[0]
         timer.record("load_wait", time.perf_counter() - t0, b)
         if on_cuda:
             c0, c1, k0, k1 = event(), event(), event(), event()
-            with torch.cuda.stream(copy_stream):
+            with annotate("mmw.feed.h2d"), torch.cuda.stream(copy_stream):
                 c0.record()
                 re_d = re_h.to(device, non_blocking=True)
                 im_d = im_h.to(device, non_blocking=True)

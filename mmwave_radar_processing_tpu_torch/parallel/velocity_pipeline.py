@@ -22,6 +22,11 @@ Per frame:
    small-``vx`` model otherwise);
 8. R^2 and inlier-fraction gates.
 
+Under ``torch.profiler`` a call is the span ``mmw.vel``, split into
+``mmw.vel.window_dft`` (1-3), ``mmw.vel.responses`` (4), ``mmw.vel.vx`` (5),
+``mmw.vel.precise`` (6, with its own ``mmw.vel.responses`` inside),
+``mmw.vel.peaks`` and ``mmw.vel.ransac`` (7-8).
+
 RANSAC samples with Gumbel scores ``[B, 2, 20, n]`` (``n`` velocity rows,
 azimuth fit first).  ``forward`` takes them as ``gumbel``; without them it
 draws them from a generator seeded with ``seed`` at every call, so the same
@@ -52,6 +57,7 @@ from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
     ODS_AZ_SETS_VIRTUAL,
     ODS_EL_SETS_VIRTUAL,
 )
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
 
 MAX_TRIALS = 20
 MIN_SAMPLES = 10
@@ -330,45 +336,53 @@ class VelocityPipeline(nn.Module):
                 altitude: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None):
         self._check_inputs(raw_re, raw_im, altitude)
         b = raw_re.shape[0]
-        start, rmask = self.altitude_window(altitude)
-        wgt = rmask / torch.clamp_min(rmask.sum(dim=1, keepdim=True), 1.0)
-        rng_w = self.windowed_range_dft(torch.complex(raw_re, raw_im), start)
-        chv = torch.matmul(rng_w, self.chirp_dft)  # [B, W, 12, nv]
-        resp = self.responses(chv, wgt)
-        if self.stop_after == "responses":
-            return tuple(resp.unbind(1))
+        with annotate("mmw.vel"):
+            with annotate("mmw.vel.window_dft"):
+                start, rmask = self.altitude_window(altitude)
+                wgt = rmask / torch.clamp_min(rmask.sum(dim=1, keepdim=True), 1.0)
+                rng_w = self.windowed_range_dft(torch.complex(raw_re, raw_im), start)
+                chv = torch.matmul(rng_w, self.chirp_dft)  # [B, W, 12, nv]
+            with annotate("mmw.vel.responses"):
+                resp = self.responses(chv, wgt)
+                if self.stop_after == "responses":
+                    return tuple(resp.unbind(1))
 
-        db = _db(resp, self.peak_threshold_db)
-        bins = self.vel_bins.expand(b, self.nv)
-        vx = self.vx_from(db, bins)
-        if self.stop_after == "vx":
-            return vx
-        row_valid = None
-        if self.enable_precise:
-            neg_bins, neg_ok, pos_bins, pos_ok = self.zoomed_grid(-vx)
-            bins = torch.cat([neg_bins, pos_bins], dim=-1)
-            row_valid = torch.cat([neg_ok[:, None].expand(b, self.nv),
-                                   pos_ok[:, None].expand(b, self.nv)], dim=-1)
-            zoom = self.precise_chirp_dft(neg_bins, pos_bins)
-            chv = torch.bmm(rng_w.reshape(b, -1, self.nv), zoom)
-            chv = chv.view(b, self.win_rows, self.n_virt, 2 * self.nv)
-            db = _db(self.responses(chv, wgt, row_valid.to(torch.float32)),
-                     self.peak_threshold_db)
-            vx = self.vx_from(db, bins, row_valid)
+            with annotate("mmw.vel.vx"):
+                db = _db(resp, self.peak_threshold_db)
+                bins = self.vel_bins.expand(b, self.nv)
+                vx = self.vx_from(db, bins)
+            if self.stop_after == "vx":
+                return vx
+            row_valid = None
+            if self.enable_precise:
+                with annotate("mmw.vel.precise"):
+                    neg_bins, neg_ok, pos_bins, pos_ok = self.zoomed_grid(-vx)
+                    bins = torch.cat([neg_bins, pos_bins], dim=-1)
+                    row_valid = torch.cat([neg_ok[:, None].expand(b, self.nv),
+                                           pos_ok[:, None].expand(b, self.nv)], dim=-1)
+                    zoom = self.precise_chirp_dft(neg_bins, pos_bins)
+                    chv = torch.bmm(rng_w.reshape(b, -1, self.nv), zoom)
+                    chv = chv.view(b, self.win_rows, self.n_virt, 2 * self.nv)
+                    with annotate("mmw.vel.responses"):
+                        resp = self.responses(chv, wgt, row_valid.to(torch.float32))
+                    db = _db(resp, self.peak_threshold_db)
+                    vx = self.vx_from(db, bins, row_valid)
 
-        angles, found = self.row_peaks(db, None if row_valid is None
-                                       else row_valid[:, None])
-        if self.stop_after == "peaks":
-            return angles[:, 0], bins, found[:, 0], angles[:, 1], found[:, 1], vx
-        if gumbel is None:
-            gen = torch.Generator(device=raw_re.device)
-            gen.manual_seed(self.seed)
-            gumbel = self.draw_gumbel(b, gen, device=raw_re.device)
-        vy, r2, inlier = self.fit_vy(angles, bins, found, vx, gumbel)
-        gated = torch.where((r2 >= self.min_r2) & (inlier >= self.min_inlier), vy, 0.0)
-        velocity = torch.stack([gated[:, 0], gated[:, 1], vx], dim=-1)
-        return VelocityBatch(velocity, vx, r2[:, 0], r2[:, 1], inlier[:, 0],
-                             inlier[:, 1])
+            with annotate("mmw.vel.peaks"):
+                angles, found = self.row_peaks(db, None if row_valid is None
+                                               else row_valid[:, None])
+                if self.stop_after == "peaks":
+                    return angles[:, 0], bins, found[:, 0], angles[:, 1], found[:, 1], vx
+            with annotate("mmw.vel.ransac"):
+                if gumbel is None:
+                    gen = torch.Generator(device=raw_re.device)
+                    gen.manual_seed(self.seed)
+                    gumbel = self.draw_gumbel(b, gen, device=raw_re.device)
+                vy, r2, inlier = self.fit_vy(angles, bins, found, vx, gumbel)
+                gated = torch.where((r2 >= self.min_r2) & (inlier >= self.min_inlier), vy, 0.0)
+                velocity = torch.stack([gated[:, 0], gated[:, 1], vx], dim=-1)
+                return VelocityBatch(velocity, vx, r2[:, 0], r2[:, 1], inlier[:, 0],
+                                     inlier[:, 1])
 
 
 def build_velocity_pipeline(
@@ -395,8 +409,8 @@ def build_velocity_pipeline(
     ``"auto"`` only: the device decides (the plain version on the CPU, the
     CUDA kernel on a GPU); ``"xla"`` and ``"pallas"``/``"pallas2"`` name TPU
     formulations and raise.  ``stop_after`` (``"responses"``, ``"vx"``,
-    ``"peaks"``) returns a stage's outputs instead of the batch, for stage
-    timing.  Calls :func:`set_full_fp32`.
+    ``"peaks"``) returns a stage's outputs instead of the batch.  Calls
+    :func:`set_full_fp32`.
     """
     if response_backend != "auto":
         raise ValueError(f"response_backend={response_backend!r} is not ported: "

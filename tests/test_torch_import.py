@@ -204,12 +204,10 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_no_source_of_the_port_imports_the_jax_package():
-    """A grep of the port, ``chip_smoke.py``, ``bench_torch.py``, the stage scripts and ``scripts/torch_*.py`` for an import of JAX or the JAX package."""
+    """A grep of the port, ``chip_smoke.py``, ``bench_torch.py`` and ``scripts/torch_*.py`` for an import of JAX or the JAX package."""
     sources = glob.glob(os.path.join(REPO, "mmwave_radar_processing_tpu_torch", "**", "*.py"),
                         recursive=True)
-    sources += [os.path.join(REPO, name) for name in
-                ("chip_smoke.py", "bench_torch.py", "torch_pointcloud_stages.py",
-                 "torch_velocity_stages.py")]
+    sources += [os.path.join(REPO, name) for name in ("chip_smoke.py", "bench_torch.py")]
     sources += glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
     assert len(sources) >= 70
     banned = re.compile(r"^\s*(from|import)\s+(jax|mmwave_radar_processing_tpu)(\.|\s|$)",
