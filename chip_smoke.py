@@ -97,7 +97,10 @@ failure (exit code != 0):
    ``HBM_BYTES_PER_S`` and its operations over ``FP32_OPS_PER_S``; the noise
    kernel also on continuous maps (within 5% of the quantized ones: it
    searches ranks, not floats), for one frame, at two other windows, and
-   with the operations its own design spends (``kernel_own_ops``);
+   with the operations its own design spends (``kernel_own_ops``); the
+   velocity peak picker's kernel on the velocity path's own dB maps
+   [1024, 2, 70, 60] of those inputs, equal to its plain version bit for
+   bit, behind a busy device;
 14. ground kernel: the altitude recursion of the ground scan against its
    plain version (a loop of T steps over tensors) on the same CUDA tensors,
    equal bit for bit, at T in {1, 7, 1024, 5000}, precise and not, with a
@@ -278,7 +281,7 @@ failure (exit code != 0):
    the matched frames an angle bin apart or matched on one device only.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
-13: the beamforming, response, noise, detection and k-th-smallest kernels (each is held
+13: the beamforming, response, noise, detection, k-th-smallest and peak kernels (each is held
 against its plain version before or while it is timed), and adds the sweeps
 that the default run leaves out: the detection kernel for one frame and at
 other windows, the k-th-smallest kernel at other widths, on rows with a
@@ -330,6 +333,9 @@ RANK_REPLACES = {
     "os_cfar_2d_noise": "mmwave_radar_processing_tpu/ops/pallas/os_cfar.py:218",
     "kth_smallest": "mmwave_radar_processing_tpu/ops/pallas/rank_select.py:88",
 }
+#: the velocity peak picker: no Pallas kernel, plain jnp (pairwise masks under vmap)
+PEAK_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/prominent_peak.cu"
+PEAK_REPLACES = "mmwave_radar_processing_tpu/ops/peaks.py:255"
 #: the ground scan's recursion: no Pallas kernel, XLA's lax.scan
 GROUND_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/altitude_track.cu"
 GROUND_REPLACES = "mmwave_radar_processing_tpu/parallel/ground_pipeline.py:248"
@@ -399,8 +405,9 @@ SA_FRAMES = 32
 SA_VEL = (0.2, 0.01, 0.0)
 RANSAC_SEED = 0
 #: the hand-written kernels each bench metric's pipeline launches
-PATH_KERNELS = {"pointcloud": ("os_cfar_2d_detect",), "velocity": ("doppler_az_responses",),
-                "combined": ("os_cfar_2d_detect", "doppler_az_responses"),
+PATH_KERNELS = {"pointcloud": ("os_cfar_2d_detect",),
+                "velocity": ("doppler_az_responses", "prominent_peak"),
+                "combined": ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak"),
                 "ground": ("altitude_track",), "capon": ("capon_power",),
                 "bartlett": ("bartlett_power",)}
 #: bench_entry: the entry point's ms a batch within this factor of measure_path's
@@ -417,7 +424,7 @@ RECORDING_FRAMES, RECORDING_BATCH = 40, 16
 RECORDING_EGO = (0.8, 0.3, -0.1)
 RECORDING_MODES = ("2d", "points", "ground")
 #: the hand-written kernels each mode launches once a batch
-RECORDING_KERNELS = {"2d": ("os_cfar_2d_detect", "doppler_az_responses"),
+RECORDING_KERNELS = {"2d": ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak"),
                      "points": ("os_cfar_2d_detect",), "ground": ("altitude_track",)}
 THROUGHPUT_FRAMES, THROUGHPUT_BATCH, LOADER_THREADS = 4196, 1024, 8
 VELOCITY_ANALYSIS_FRAMES = 16
@@ -532,12 +539,14 @@ DRAWING_SA = dict(num_frames=2, min_vel=(0.0, 0.0, 0.0), max_vel=(1.0, 0.5, 0.2)
                   max_vel_stdev=(0.1, 0.1, 0.1))
 MULTIDEVICE_WORLDS = (1, 2, 4)
 #: the kernels each rank's multi-device checks must launch: the sharded
-#: combined pipeline (also under the feed) #1's compacting entry and #4, the
-#: halo OS-CFAR 2D #1's mask entry, the halo OS-CFAR 1D #3; the dry run all three
-MULTIDEVICE_PIPELINE_KERNELS = ("os_cfar_2d_detect", "doppler_az_responses")
+#: combined pipeline (also under the feed) #1's compacting entry, #4 and the
+#: peak picker, the halo OS-CFAR 2D #1's mask entry, the halo OS-CFAR 1D #3; the
+#: dry run all four
+MULTIDEVICE_PIPELINE_KERNELS = ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak")
 MULTIDEVICE_HALO_KERNELS = {"os_cfar_2d_detect": ("os_cfar_2d_detect",),
                             "os_cfar_1d": ("kth_smallest",), "ca_cfar_2d": ()}
-MULTIDEVICE_KERNELS = ("os_cfar_2d_detect", "kth_smallest", "doppler_az_responses")
+MULTIDEVICE_KERNELS = ("os_cfar_2d_detect", "kth_smallest", "doppler_az_responses",
+                       "prominent_peak")
 #: the sharded pipeline's outputs that must equal the unsharded pipeline's bit for bit
 MULTIDEVICE_PIPELINE_KEYS = ("points", "valid", "count", "vx", "velocity")
 #: (rtol, atol as a share of the map's maximum) of the sharded beamformers against the dense form
@@ -973,12 +982,14 @@ def velocity_agreement(gpu, cpu):
 def check_velocity(cfg, device, frames):
     """Velocity pipeline on the GPU vs the CPU port, coarse and precise.
 
-    Returns the response kernel's launches in each mode's GPU run.
+    Returns the response kernel's launches in each mode's GPU run, and the
+    peak kernel's under ``"<mode>_peaks"``.
     """
     from mmwave_radar_processing_tpu_torch import VelocityBatch, build_velocity_pipeline
     from mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az import (
         doppler_az_responses,
     )
+    from mmwave_radar_processing_tpu_torch.ops.kernels.peaks import prominent_peak
 
     cpu_in = [torch.from_numpy(a) for a in frames]
     gpu_in = [t.to(device) for t in cpu_in]
@@ -990,19 +1001,24 @@ def check_velocity(cfg, device, frames):
                                  torch.Generator().manual_seed(RANSAC_SEED))
         g_gpu = gumbel.to(device)
         torch.cuda.synchronize()
-        doppler_az_responses.launches = 0
+        doppler_az_responses.launches = prominent_peak.launches = 0
         out_gpu = gpu(*gpu_in, gumbel=g_gpu)
         torch.cuda.synchronize()
         launches[mode] = doppler_az_responses.launches
+        launches[f"{mode}_peaks"] = prominent_peak.launches
         if launches[mode] < 1:
             raise RuntimeError(f"the {mode} velocity path never launched the "
                                "response kernel")
+        if launches[f"{mode}_peaks"] != 1:
+            raise RuntimeError(f"the {mode} velocity path launched the peak kernel "
+                               f"{launches[f'{mode}_peaks']} times, expected once")
         out_cpu = cpu(*cpu_in, gumbel=gumbel)
         out_gpu = VelocityBatch(*(t.cpu() for t in out_gpu))
         if tuple(out_gpu.velocity.shape) != (len(frames[0]), 3):
             raise RuntimeError(f"velocity: shape {tuple(out_gpu.velocity.shape)}")
         emit(phase="velocity_slice", mode=mode, batch=len(frames[0]),
-             launches=launches[mode], **velocity_agreement(out_gpu, out_cpu),
+             launches=launches[mode], peak_launches=launches[f"{mode}_peaks"],
+             **velocity_agreement(out_gpu, out_cpu),
              vx_nonzero=int((out_gpu.vx != 0).sum()),
              az_r2_nonzero=int((out_gpu.az_r2 != 0).sum()),
              el_r2_nonzero=int((out_gpu.el_r2 != 0).sum()))
@@ -1010,7 +1026,7 @@ def check_velocity(cfg, device, frames):
 
 
 def check_combined(cfg, device, frames):
-    """Combined pipeline on the GPU vs the CPU port; returns (CFAR, response) launches."""
+    """Combined pipeline on the GPU vs the CPU port; returns (CFAR, response, peak) launches."""
     from mmwave_radar_processing_tpu_torch import (
         PointCloudBatch, VelocityBatch, build_full_pipeline,
     )
@@ -1020,6 +1036,7 @@ def check_combined(cfg, device, frames):
     from mmwave_radar_processing_tpu_torch.ops.kernels.os_cfar import (
         os_cfar_2d_detect,
     )
+    from mmwave_radar_processing_tpu_torch.ops.kernels.peaks import prominent_peak
 
     kw = dict(az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
               cfar_params=CFAR_PARAMS, max_dets=128)
@@ -1031,10 +1048,11 @@ def check_combined(cfg, device, frames):
     gpu_in = [t.to(device) for t in cpu_in]
     g_gpu = gumbel.to(device)
     torch.cuda.synchronize()
-    os_cfar_2d_detect.launches = doppler_az_responses.launches = 0
+    os_cfar_2d_detect.launches = doppler_az_responses.launches = prominent_peak.launches = 0
     pc_gpu, vel_gpu = gpu(*gpu_in, gumbel=g_gpu)
     torch.cuda.synchronize()
-    launches = (os_cfar_2d_detect.launches, doppler_az_responses.launches)
+    launches = (os_cfar_2d_detect.launches, doppler_az_responses.launches,
+                prominent_peak.launches)
     if min(launches) < 1:
         raise RuntimeError(f"the combined path missed a kernel: launches {launches}")
     pc_cpu, vel_cpu = cpu(*cpu_in, gumbel=gumbel)
@@ -1048,7 +1066,8 @@ def check_combined(cfg, device, frames):
         raise RuntimeError(f"combined: points differ by {pts_err} "
                            f"(count sum {int(pc_gpu.count.sum())})")
     emit(phase="combined_slice", batch=len(frames[0]), cfar_launches=launches[0],
-         response_launches=launches[1], points_max_abs_diff=pts_err,
+         response_launches=launches[1], peak_launches=launches[2],
+         points_max_abs_diff=pts_err,
          **velocity_agreement(vel_gpu, vel_cpu))
     raised_gates("combined", pc_cpu, pc_gpu)
     return launches
@@ -2120,6 +2139,42 @@ def time_altitude_track(pipeline, raw_re, raw_im):
     emit(phase="ground_kernel_timing", frames=t, turns=turns, timed_behind_a_busy_device=True,
          launch_to_launch_ms=cuda_ms(kernel, 50),
          frames_with_a_valid_candidate=int(valid.any(1).sum()), **res)
+    return res
+
+
+def time_prominent_peak(cfg, raw_re, raw_im, alts):
+    """The peak kernel and its plain version on the velocity path's own dB maps, in turns.
+
+    The maps are those the velocity pipeline picks its peaks from
+    ([B, 2, 70, 60] at batch 1024), held equal bit for bit before the
+    turns.  No library call computes the function.
+    """
+    from mmwave_radar_processing_tpu_torch import build_velocity_pipeline
+    from mmwave_radar_processing_tpu_torch.ops import peaks
+    from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import (
+        MIN_PROMINENCE_DB, _db,
+    )
+
+    pipe = build_velocity_pipeline(cfg, stop_after="responses", device=raw_re.device)
+    db = _db(torch.stack(pipe(raw_re, raw_im, alts), dim=1), pipe.peak_threshold_db)
+
+    def kernel():
+        return peaks.best_prominent_peak(db, MIN_PROMINENCE_DB)
+
+    def plain():
+        return peaks.best_prominent_peak_reference(db, MIN_PROMINENCE_DB)
+
+    got, want = kernel(), plain()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("peak kernel != plain version on the velocity path's maps")
+    kernel_ms, plain_ms, turns = take_turns(kernel, plain, 50, 3, queued=True)
+    rows = got[0].numel()
+    # bytes: the maps once, an int64 and a bool a row; operations: the two
+    # compares a sample of the local-maximum test (the walks depend on the data)
+    res = timing(kernel_ms, plain_ms, 4 * db.numel() + 9 * rows, 2 * db.numel())
+    emit(phase="peak_kernel_timing", shape=list(db.shape), turns=turns,
+         timed_behind_a_busy_device=True, launch_to_launch_ms=cuda_ms(kernel, 50),
+         rows_found=int(got[1].sum()), **res)
     return res
 
 
@@ -3604,7 +3659,7 @@ def build_kernels():
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
     names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select",
-             "altitude_track")
+             "altitude_track", "prominent_peak")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -3640,10 +3695,11 @@ def kernel_times():
     emit(phase="environment", card=gpu_name_and_power_limit(), torch=torch.__version__,
          cuda=torch.version.cuda)
     cfg = load_cfg(FLAGSHIP_CFG, array_geometry="ods", array_direction="down")
-    raw_re, raw_im, _ = bench_inputs(cfg, device)
+    raw_re, raw_im, alts = bench_inputs(cfg, device)
     time_beamform(build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method="capon",
                                        loading=LOADING, device=device), raw_re, raw_im)
-    del raw_re, raw_im
+    time_prominent_peak(cfg, raw_re, raw_im, alts)
+    del raw_re, raw_im, alts
     time_responses(build_velocity_pipeline(cfg, device=device), device)
     time_noise(device)
     time_cfar(device, sweeps=True)
@@ -3731,6 +3787,7 @@ def main():
     measure_path("ground", lambda: ground(raw_re, raw_im), device)
     measure_path("ground_altitude", lambda: ground_altitude(raw_re, raw_im), device)
     track_ms = time_altitude_track(ground, raw_re, raw_im)
+    peak_ms = time_prominent_peak(cfg, raw_re, raw_im, alts)
     measure_ground_stages(ground, raw_re, raw_im)
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
@@ -3823,6 +3880,15 @@ def main():
          + entry_launches.get("altitude_track", 0) + viewer_launches["altitude"]
          + drawing_launches["altitude"],
          "max_abs_err": track_err, **track_ms},
+        # no TPU kernel's counterpart: the JAX package's best_prominent_peak is
+        # plain jnp; one launch a velocity or combined call (the slices' runs)
+        {"name": "prominent_peak", "route": "cuda", "source": PEAK_SOURCE,
+         "replaces": PEAK_REPLACES,
+         "launches": vel_launches["coarse_peaks"] + vel_launches["precise_peaks"]
+         + comb_launches[2] + rec_launches["2d"].get("prominent_peak", 0)
+         + entry_launches.get("prominent_peak", 0)
+         + multidevice_launches.get("prominent_peak", 0),
+         "max_abs_err": 0.0, **peak_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

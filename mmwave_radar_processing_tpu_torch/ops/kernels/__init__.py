@@ -6,7 +6,7 @@ import torch
 def wrappers():
     """Every hand-written kernel's wrapper by name; each counts its launches in ``.launches``."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import (
-        altitude_track, beamform, doppler_az, os_cfar, rank_select,
+        altitude_track, beamform, doppler_az, os_cfar, peaks, rank_select,
     )
 
     return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect,
@@ -14,7 +14,8 @@ def wrappers():
             "kth_smallest": rank_select.kth_smallest,
             "doppler_az_responses": doppler_az.doppler_az_responses,
             "capon_power": beamform.capon_power, "bartlett_power": beamform.bartlett_power,
-            "altitude_track": altitude_track.altitude_track}
+            "altitude_track": altitude_track.altitude_track,
+            "prominent_peak": peaks.prominent_peak}
 
 
 def count_launches(fn):

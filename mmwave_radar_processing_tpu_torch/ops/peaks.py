@@ -8,6 +8,12 @@ highest; and for the object API the dense prominence of every sample,
 min/max, so the indices and the ``found`` flags equal the JAX package's
 exactly, ties included.  The JAX functions work on one row under ``vmap``; here every
 function takes ``[..., N]`` and works on all leading rows at once.
+
+:func:`best_prominent_peak`, the velocity path's peak picker, dispatches on
+the device only: a CPU tensor takes the plain version
+:func:`best_prominent_peak_reference`, a CUDA tensor the hand-written kernel
+(:mod:`.kernels.peaks`) or raises.  There is no fallback from one to the
+other; the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from mmwave_radar_processing_tpu_torch.ops.kernels import peaks as kernel
 from mmwave_radar_processing_tpu_torch.ops.masked import mask_to_indices
 
 
@@ -118,15 +125,14 @@ def _prominences_at(x: torch.Tensor, cand_vals: torch.Tensor,
     return cand_vals - torch.maximum(left_min, right_min)
 
 
-def best_prominent_peak(
+def best_prominent_peak_reference(
     x: torch.Tensor, min_prominence: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Highest local maximum of each row with prominence ``>= min_prominence``.
+    """Plain PyTorch :func:`best_prominent_peak`: the JAX package's candidate masks.
 
-    ``[..., N] -> (index int64 [...], found bool [...])``.  Ties in value go
-    to the lowest index (the first maximum, as ``argmax`` over the dense
-    masked row takes it); a row with no such peak gives index 0 and
-    ``found`` False.
+    The top ``(N+1)//2`` local maxima (:func:`_candidate_peaks`), their
+    prominences from pairwise masks (:func:`_prominences_at`), then the
+    highest that passes.
     """
     n = x.shape[-1]
     cand_vals, cand_idx = _candidate_peaks(x)
@@ -135,6 +141,26 @@ def best_prominent_peak(
     vmax = torch.where(passing, cand_vals, float("-inf")).amax(dim=-1, keepdim=True)
     best = torch.where(passing & (cand_vals == vmax), cand_idx, n).amin(dim=-1)
     return torch.where(best < n, best, 0), passing.any(dim=-1)
+
+
+def best_prominent_peak(
+    x: torch.Tensor, min_prominence: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Highest local maximum of each row with prominence ``>= min_prominence``.
+
+    ``[..., N] -> (index int64 [...], found bool [...])``.  Ties in value go
+    to the lowest index (the first maximum, as ``argmax`` over the dense
+    masked row takes it); a row with no such peak gives index 0 and
+    ``found`` False.  A peak passes only if its value is finite; a NaN
+    between a peak and either of its bases makes its prominence NaN, and it
+    fails.  On a CUDA tensor the kernel takes float32, contiguous rows of 1
+    to ``kernels.peaks.MAX_N`` samples and raises on anything else.
+    """
+    if x.device.type == "cpu":
+        return best_prominent_peak_reference(x, min_prominence)
+    if x.device.type != "cuda":
+        raise ValueError(f"no peak kernel for device {x.device}")
+    return kernel.prominent_peak(x, min_prominence)
 
 
 def top_peaks_within_threshold(

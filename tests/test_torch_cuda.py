@@ -23,18 +23,24 @@ from mmwave_radar_processing_tpu_torch import (
     load_cfg,
     make_inputs,
 )
-from mmwave_radar_processing_tpu_torch.ops import altitude, beamform, cfar, doppler_az, masked
+from mmwave_radar_processing_tpu_torch.ops import (
+    altitude, beamform, cfar, doppler_az, masked, peaks,
+)
 from mmwave_radar_processing_tpu_torch.ops.kernels import altitude_track as akernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import beamform as bkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as dkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
+from mmwave_radar_processing_tpu_torch.ops.kernels import peaks as pkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import rank_select
 from mmwave_radar_processing_tpu_torch.processors import (
     PointCloudGenerator,
     RangeDetector,
     RangeDopplerDetectorSequential,
 )
+from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import MIN_PROMINENCE_DB, _db
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
+
+import peak_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -195,12 +201,90 @@ def test_velocity_on_cuda_matches_cpu_and_launches_the_kernel(cuda, enable_preci
     inputs = [torch.from_numpy(a) for a in (raw_re, raw_im, alts)]
     want = cpu(*inputs, gumbel=gumbel)
     gpu = build_velocity_pipeline(cfg, enable_precise=enable_precise, device=cuda)
-    dkernel.doppler_az_responses.launches = 0
+    dkernel.doppler_az_responses.launches = pkernel.prominent_peak.launches = 0
     got = gpu(*(t.to(cuda) for t in inputs), gumbel=gumbel.to(cuda))
     torch.cuda.synchronize()
     assert dkernel.doppler_az_responses.launches == (2 if enable_precise else 1)
+    assert pkernel.prominent_peak.launches == 1  # the zoom pass picks its peaks once
     torch.testing.assert_close(got.vx.cpu(), want.vx, rtol=0, atol=1e-5)
     torch.testing.assert_close(got.velocity.cpu(), want.velocity, rtol=0, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the velocity peak picker
+# --------------------------------------------------------------------------- #
+def _assert_peaks_equal(x, min_prominence):
+    before = pkernel.prominent_peak.launches
+    idx, found = peaks.best_prominent_peak(x, min_prominence)
+    torch.cuda.synchronize()
+    assert pkernel.prominent_peak.launches == before + (x.numel() > 0)
+    want_idx, want_found = peaks.best_prominent_peak_reference(x, min_prominence)
+    assert idx.shape == found.shape == x.shape[:-1]
+    assert idx.dtype == torch.int64 and found.dtype == torch.bool
+    assert torch.equal(idx, want_idx), int((idx != want_idx).sum())
+    assert torch.equal(found, want_found), int((found != want_found).sum())
+    return found
+
+
+@pytest.mark.parametrize("planes", ["noise", "scenes"])
+def test_peak_kernel_equals_plain_version_on_the_pipelines_maps(cuda, planes):
+    """The velocity path's own dB maps [B, 2, 70, 60]: 1024 frames of noise, 4 simulated scenes."""
+    cfg = load_cfg(CFG_PATH, array_geometry="ods", array_direction="down")
+    pipe = build_velocity_pipeline(cfg, stop_after="responses", device=cuda)
+    if planes == "noise":
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        raw = [torch.randn((1024, 4, 63, 210), generator=gen, device=cuda) for _ in "ri"]
+        alts = torch.full((1024,), 1.2, device=cuda)
+    else:
+        *raw, alts = (torch.from_numpy(a).to(cuda) for a in make_inputs(cfg, 4, seed=7))
+    db = _db(torch.stack(pipe(*raw, alts), dim=1), pipe.peak_threshold_db)
+    assert db.shape == (raw[0].shape[0], 2, 70, 60) and db.is_contiguous()
+    found = _assert_peaks_equal(db, MIN_PROMINENCE_DB)
+    assert bool(found.any()) and not bool(found.all())
+    for min_prominence in (0.0, 2.0, 12.0):
+        _assert_peaks_equal(db, min_prominence)
+
+
+@pytest.mark.parametrize("n", peak_rows.WIDTHS)
+def test_peak_kernel_equals_plain_version(cuda, n):
+    """Quantised rows (ties, prominences on the floors), dB rows, and the special rows."""
+    rows = max(64, min(4096, 2 ** 26 // (n * n)))  # the plain version's [rows, N/2, N] masks
+    x = np.concatenate([peak_rows.quantised_rows(rows, n, seed=n),
+                        peak_rows.db_rows(rows, n, seed=n + 1),
+                        peak_rows.special_rows(n, seed=n + 2)])
+    x = torch.from_numpy(x).to(cuda)
+    for min_prominence in peak_rows.THRESHOLDS + (4.000000001,):
+        _assert_peaks_equal(x, min_prominence)
+    _assert_peaks_equal(x[:7].reshape(7, 1, n), 1.0)  # a last block of 7 rows
+
+
+def test_peak_kernel_takes_rows_off_a_16_byte_boundary_and_empty_batches(cuda):
+    x = torch.from_numpy(peak_rows.quantised_rows(999, 60, seed=3)).to(cuda)
+    storage = torch.empty(x.numel() + 1, device=cuda)
+    view = storage[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    _assert_peaks_equal(view, 1.0)
+    for shape in [(0, 60), (3, 0, 60)]:
+        idx, found = peaks.best_prominent_peak(torch.empty(shape, device=cuda), 4.0)
+        assert idx.shape == found.shape == shape[:-1]
+
+
+@pytest.mark.parametrize("case", ["strided", "float64", "too_wide"])
+def test_peak_kernel_rejects_what_it_does_not_take(cuda, case):
+    x = torch.from_numpy(peak_rows.quantised_rows(8, 60, seed=4)).to(cuda)
+    if case == "strided":
+        x, err = x[:, ::2], ValueError
+    elif case == "float64":
+        x, err = x.double(), TypeError
+    else:
+        x, err = torch.zeros((2, pkernel.MAX_N + 1), device=cuda), ValueError
+    before = pkernel.prominent_peak.launches
+    with pytest.raises(err):
+        peaks.best_prominent_peak(x, 4.0)
+    with pytest.raises(err):
+        pkernel.prominent_peak(x, 4.0)
+    assert pkernel.prominent_peak.launches == before
 
 
 # --------------------------------------------------------------------------- #

@@ -22,7 +22,10 @@ from mmwave_radar_processing_tpu.processors import velocity_estimator as jveloci
 from mmwave_radar_processing_tpu_torch.ops import dft, doppler_az, peaks, ransac
 from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as kernel
+from mmwave_radar_processing_tpu_torch.ops.kernels import peaks as peak_kernel
 from mmwave_radar_processing_tpu_torch.processors import velocity_estimator
+
+import peak_rows
 
 torch.set_num_threads(2)  # tier-1 runs several xdist workers
 
@@ -73,6 +76,9 @@ def test_best_prominent_peak_equals_jax(kind, min_prominence):
     idx, found = peaks.best_prominent_peak(torch.from_numpy(x), min_prominence)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(w_idx))
     np.testing.assert_array_equal(found.numpy(), np.asarray(w_found))
+    ref_idx, ref_found = peaks.best_prominent_peak_reference(torch.from_numpy(x), min_prominence)
+    np.testing.assert_array_equal(ref_idx.numpy(), np.asarray(w_idx))
+    np.testing.assert_array_equal(ref_found.numpy(), np.asarray(w_found))
     assert found.any()
     if kind == "ties":  # equal highest peaks: the lower index wins
         assert (idx.numpy()[found.numpy()] != 30).all()
@@ -86,6 +92,69 @@ def test_peaks_batch_over_leading_dims():
     assert idx.shape == (4, 16)
     assert torch.equal(idx.reshape(64), flat_idx)
     assert torch.equal(found.reshape(64), flat_found)
+
+
+@pytest.mark.parametrize("n", [w for w in peak_rows.WIDTHS if w <= 140])
+def test_the_peak_kernels_algorithm_equals_the_plain_version(n):
+    """The walk of ``csrc/prominent_peak.cu``, modelled in numpy, against the pairwise masks.
+
+    Quantised rows (ties in value, prominences exactly at the floors),
+    dB-like rows, and plateaus, monotone rows, signed zeros, NaN and
+    infinities; the widest row (1,024) is held on the card only, where the
+    plain version is fast enough.
+    """
+    x = np.concatenate([peak_rows.quantised_rows(32, n, seed=n),
+                        peak_rows.db_rows(16, n, seed=n + 1),
+                        peak_rows.special_rows(n, seed=n + 2)])
+    # 4.000000001 rounds to 4.0 in float32: the floor is compared in float32
+    for min_prominence in peak_rows.THRESHOLDS + (4.000000001,):
+        want_idx, want_found = peaks.best_prominent_peak_reference(torch.from_numpy(x),
+                                                                   min_prominence)
+        idx, found = peak_rows.model_best_prominent_peak(x, min_prominence)
+        np.testing.assert_array_equal(idx, want_idx.numpy())
+        np.testing.assert_array_equal(found, want_found.numpy())
+        if n >= 31:
+            assert want_found.any() and not want_found.all()
+
+
+def test_peak_picker_takes_the_plain_version_on_cpu():
+    peak_kernel.prominent_peak.launches = 0
+    x = torch.from_numpy(_rows("ties", seed=5))
+    idx, found = peaks.best_prominent_peak(x, 4.0)
+    want_idx, want_found = peaks.best_prominent_peak_reference(x, 4.0)
+    assert torch.equal(idx, want_idx) and torch.equal(found, want_found)
+    assert idx.dtype == torch.int64 and found.dtype == torch.bool
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        peak_kernel.prominent_peak(x, 4.0)
+    assert peak_kernel.prominent_peak.launches == 0
+
+
+@pytest.mark.parametrize("case", ["cpu", "float64", "strided", "empty_row", "too_wide",
+                                  "scalar", "meta"])
+def test_peak_picker_rejects_what_the_kernel_does_not_take(case):
+    """The launch raises on what the kernel does not take, the dispatch on a device without one."""
+    x = torch.from_numpy(_rows("random", seed=6))
+    err, match = ValueError, None
+    if case == "cpu":
+        match = "needs a CUDA tensor"
+    elif case == "float64":
+        x, err, match = x.double(), TypeError, "float32"
+    elif case == "strided":
+        x, match = x[:, ::2], "contiguous"
+    elif case == "empty_row":
+        x, match = x[:, :0], "1 to 1024 samples"
+    elif case == "too_wide":
+        x, match = torch.zeros(2, peak_kernel.MAX_N + 1), "1 to 1024 samples"
+    elif case == "scalar":
+        x, match = x[0, 0], "1 to 1024 samples"
+    else:
+        with pytest.raises(ValueError, match="no peak kernel for device"):
+            peaks.best_prominent_peak(x.to("meta"), 4.0)
+        return
+    before = peak_kernel.prominent_peak.launches
+    with pytest.raises(err, match=match):
+        peak_kernel.prominent_peak(x, 4.0)
+    assert peak_kernel.prominent_peak.launches == before
 
 
 # --------------------------------------------------------------------------- #
@@ -362,6 +431,15 @@ def test_response_kernel_source_is_keyed_for_the_build():
     assert lib.parent == _build.BUILD_DIR
     assert lib.name.startswith("doppler_az_responses-") and lib.suffix == ".so"
     assert (_build.CSRC_DIR / "doppler_az_responses.cu").is_file()
+
+
+def test_peak_kernel_source_is_keyed_for_the_build():
+    lib = _build.library_path("prominent_peak")
+    assert lib.parent == _build.BUILD_DIR
+    assert lib.name.startswith("prominent_peak-") and lib.suffix == ".so"
+    source = (_build.CSRC_DIR / "prominent_peak.cu").read_text()
+    # the wrapper refuses what the kernel's entry point would refuse
+    assert f"constexpr int kMaxN = {peak_kernel.MAX_N};" in source
 
 
 # --------------------------------------------------------------------------- #
