@@ -53,3 +53,13 @@ def doppler_az_responses(batch: int, channels: int, win_rows: int, nv: int, *, n
     nbytes = 4.0 * (2 * batch * channels * win_rows * nv + batch * win_rows
                     + 2 * n_angles * n_sets * n_rx + batch * n_sets * n_angles * nv)
     return ops, nbytes
+
+
+def prominent_peak(rows: int, n: int) -> Tuple[float, float]:
+    """``(ops, bytes)`` of the velocity peak picker on ``float32 [rows, n]``.
+
+    One compare a sample finds the local maxima; the prominence walks
+    depend on the data and are not counted.  In: the rows; out: an int64
+    index and a one-byte found flag a row.
+    """
+    return float(rows * n), 4.0 * rows * n + 9.0 * rows

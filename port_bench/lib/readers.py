@@ -15,7 +15,7 @@ GEMM = re.compile(r"gemm|gemv|splitKreduce", re.IGNORECASE)
 #: the program's hand-written kernels (``csrc/*.cu``)
 HAND_WRITTEN = re.compile(r"os_cfar_2d_|doppler_az_responses_kernel|beamform_kernel|"
                           r"altitude_track_kernel|kth_search_kernel|kth_network_kernel|"
-                          r"kth_warp_sort_kernel")
+                          r"kth_warp_sort_kernel|prominent_peak_kernel")
 
 
 def per_kframe_ms(seconds: float, frames: int) -> Optional[float]:

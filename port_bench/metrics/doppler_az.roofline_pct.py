@@ -2,11 +2,9 @@
 
 import math
 
-import numpy as np
-
 from port_bench.cost.roofline import bound_seconds, doppler_az_responses
 from port_bench.lib.readers import roofline_pct
-from port_bench.reference.radar import angle_bins
+from port_bench.reference.radar import valid_angle_bins
 
 LAYER = "responses"
 UNIT = "%"
@@ -18,9 +16,7 @@ KERNEL = r"doppler_az_responses_kernel"
 def read(ctx):
     cell = ctx["cell"]
     radar, v = cell.radar, cell.config["processing"]["velocity"]
-    bins = angle_bins(v["num_angle_bins"])
-    lo, hi = np.deg2rad(v["valid_angle_deg"])
-    n_angles = int(((bins >= lo) & (bins <= hi)).sum())
+    n_angles = valid_angle_bins(v)
     win_rows = min(radar.ns, int(math.ceil(
         (v["lower_range_bound"] + v["upper_range_bound"]) / radar.range_res)) + 2)
     sets = v["az_sets"] + v["el_sets"]

@@ -1,7 +1,7 @@
 """Device time per 1024 frames of every kernel that is neither a matrix product nor hand-written.
 
-That is PyTorch's own kernels: the peak picker, RANSAC, the gathers and the
-elementwise work (``ops/peaks.py``, ``ops/ransac.py``, ``ops/masked.py``).
+That is PyTorch's own kernels: RANSAC, the gathers and the elementwise work
+(``ops/ransac.py``, ``ops/masked.py``); the peak picker's kernel is hand-written.
 """
 
 from port_bench.lib.readers import GEMM, HAND_WRITTEN, per_kframe_ms

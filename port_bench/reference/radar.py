@@ -96,3 +96,10 @@ def angle_bins(n: int) -> np.ndarray:
     phase = np.arange(math.pi, -math.pi - step, -step)[:n]
     phase[-1] = -math.pi
     return np.arcsin(phase / math.pi)
+
+
+def valid_angle_bins(velocity: dict) -> int:
+    """Angle bins of the velocity path's DFT that lie within its valid angle range."""
+    bins = angle_bins(velocity["num_angle_bins"])
+    lo, hi = np.deg2rad(velocity["valid_angle_deg"])
+    return int(((bins >= lo) & (bins <= hi)).sum())

@@ -3,7 +3,8 @@
 Hand-built Chrome events: kernels and copies with a ``correlation``, the
 runtime and driver calls that launched them, and nested spans on two host
 threads.  Then the replayed window of a tiny cell on the CPU, which finds
-the spans and, with no device, no stage time.
+the spans and, with no device, no stage time.  Last, the kernel-type reader
+that leaves the hand-written kernels out.
 """
 
 import pytest
@@ -130,6 +131,18 @@ def test_each_reader_gives_none_where_its_span_never_appeared():
     modules = metric_modules()
     for name in [*STAGE_METRICS, "launches_per_kframe"]:
         assert modules[name].read(ctx) is None, name
+
+
+@pytest.mark.parametrize("kernel", [
+    "void (anonymous namespace)::prominent_peak_kernel(float const*, long long, int, float, "
+    "long long*, unsigned char*)",
+    "void os_cfar_2d_detect_kernel<true>(float const*, unsigned char*, long*, int)",
+    "void doppler_az_responses_kernel<4>(float const*, float const*, float*)",
+])
+def test_a_hand_written_kernel_counts_in_no_eager_reading(kernel):
+    ops = [(kernel, 0.0, 500.0), ("void at::native::elementwise_kernel<128, 2>()", 600.0, 100.0)]
+    trace = Trace(window_s=1.0, frames=1024, kernels=ops, device_ops=ops)
+    assert metric_modules()["eager_ms_per_kframe"].read({"trace": trace}) == pytest.approx(0.1)
 
 
 @pytest.mark.parametrize("cell,spans", [
