@@ -48,6 +48,8 @@ from mmwave_radar_processing_tpu_torch.parallel.ground_pipeline import (
     build_ground_point_cloud_pipeline,
 )
 from mmwave_radar_processing_tpu_torch.parallel.beamform_pipeline import (
+    ApertureDepth,
+    ApertureState,
     SyntheticAperturePipeline,
     build_synthetic_aperture_pipeline,
 )
@@ -81,6 +83,8 @@ __all__ = [
     "build_capon_pipeline",
     "GroundPipelineOut",
     "build_ground_point_cloud_pipeline",
+    "ApertureDepth",
+    "ApertureState",
     "SyntheticAperturePipeline",
     "build_synthetic_aperture_pipeline",
     "SpectralMaps",

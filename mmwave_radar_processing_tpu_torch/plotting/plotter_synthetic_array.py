@@ -9,9 +9,11 @@ matplotlib is imported when a method draws.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mmwave_radar_processing_tpu_torch.config import RadarConfig
 from mmwave_radar_processing_tpu_torch.processors.base import to_host
+from mmwave_radar_processing_tpu_torch.processors.synthetic_array import depth_map
 
 
 def _new_ax():
@@ -88,15 +90,18 @@ class PlotterSyntheticArrayData:
 
     def plot_depth_map(self, beamformed_resp, processor, ax=None,
                        floor_dB: float = 40.0):
-        """The range of the strongest return in each (az, el) cell, above a dB floor."""
+        """The range of the strongest return in each (az, el) cell, above a dB floor.
+
+        The bins are ``processors.synthetic_array.depth_map``'s, as the
+        synthetic-aperture pipeline's depth head makes them on the device.
+        """
         if ax is None:
             ax = _new_ax()
         mag = np.abs(to_host(beamformed_resp))  # (range, az, el)
-        db = 20 * np.log10(mag + 1e-12)
-        peak = db.max()
-        best_rng = np.asarray(processor.range_bins)[np.argmax(mag, axis=0)]
-        valid = db.max(axis=0) >= peak - floor_dB
-        depth = np.where(valid, best_rng, np.nan)
+        bins, _ = depth_map(torch.from_numpy(mag.reshape(mag.shape[0], -1)), floor_dB)
+        bins = bins.numpy().reshape(mag.shape[1:])
+        best_rng = np.asarray(processor.range_bins)[np.maximum(bins, 0)]
+        depth = np.where(bins >= 0, best_rng, np.nan)
         m = ax.imshow(depth.T, aspect="auto", origin="lower", cmap="viridis",
                       extent=[np.rad2deg(processor.az_angle_bins_rad[0]),
                               np.rad2deg(processor.az_angle_bins_rad[-1]),

@@ -59,9 +59,15 @@ class CalibrationTargets(NamedTuple):
 
 def steering_phases(steering: torch.Tensor, positions: torch.Tensor,
                     lambda_m: float) -> torch.Tensor:
-    """``exp(j*2*pi*(steering @ positions)/lambda)``: ``(A, 3) x [..., 3, E] -> [..., A, E]`` complex64."""
-    phase = 2 * np.pi * (steering @ positions) / lambda_m
-    return torch.polar(torch.ones_like(phase), phase)
+    """``exp(j*2*pi*(steering @ positions)/lambda)``: ``(A, 3) x [..., 3, E] -> [..., A, E]`` complex64.
+
+    The angles are scaled in place and the unit modulus is a broadcast
+    scalar, so a batch of phases holds the float32 angles and the result
+    and nothing more.
+    """
+    phase = steering @ positions
+    phase.mul_(2 * np.pi).div_(lambda_m)
+    return torch.polar(torch.ones((), dtype=phase.dtype, device=phase.device), phase)
 
 
 def beamform(data: torch.Tensor, positions: torch.Tensor, steering: torch.Tensor,
@@ -81,6 +87,22 @@ def beamform(data: torch.Tensor, positions: torch.Tensor, steering: torch.Tensor
     phases = steering_phases(steering, positions, lambda_m)
     beamformed = (data * element_window[None, :]) @ phases.transpose(-1, -2)
     return torch.fft.fft(beamformed * range_window[:, None], dim=0)
+
+
+def depth_map(mag: torch.Tensor, floor_db: float = 40.0):
+    """The plotter's depth map of magnitudes ``[..., range, D]`` over ``D`` directions.
+
+    Returns ``(depth_bin, peak)``, both ``[..., D]``: each direction's
+    strongest range bin (the first on ties, as ``np.argmax``) and its
+    magnitude.  ``depth_bin`` is -1 where ``20*log10(peak + 1e-12)`` lies more
+    than ``floor_db`` below the largest such value over the directions: the
+    floor of ``PlotterSyntheticArrayData.plot_depth_map``, in its float32
+    order.
+    """
+    peak, depth_bin = torch.max(mag, dim=-2)
+    db = 20 * torch.log10(peak + 1e-12)
+    keep = db >= db.amax(dim=-1, keepdim=True) - floor_db
+    return torch.where(keep, depth_bin, -1), peak
 
 
 def velocity_gate(vel_history: torch.Tensor, min_vel, max_vel, max_vel_stdev) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 - With no profiler running, ``utils/profiling.annotate`` enters no
   ``record_function``: the spans on the hot path cost a flag check.
-- Under ``torch.profiler``, one call of each pipeline opens each of its
-  stage spans once, inside its pipeline's span, and every operator the
-  pipeline runs lies in one of its stages.
+- Under ``torch.profiler``, one call of each pipeline (the synthetic
+  aperture's streamed, with its depth head) opens each of its stage spans
+  once, inside its pipeline's span, and every operator the pipeline runs
+  lies in one of its stages.
 - Outputs are bit-identical with the profiler on and off, and each
   ``stop_after`` return closes the spans it leaves.
 """
@@ -18,6 +19,7 @@ import torch
 from mmwave_radar_processing_tpu_torch import (
     build_full_pipeline,
     build_point_cloud_pipeline,
+    build_synthetic_aperture_pipeline,
     build_velocity_pipeline,
 )
 from mmwave_radar_processing_tpu_torch.config import load_cfg
@@ -30,6 +32,8 @@ FRAMES = 3
 PC_STAGES = ("mmw.pc.spectral", "mmw.pc.cfar", "mmw.pc.aoa")
 VEL_STAGES = ("mmw.vel.window_dft", "mmw.vel.responses", "mmw.vel.vx", "mmw.vel.peaks",
               "mmw.vel.ransac")
+SA_STAGES = ("mmw.sa.window", "mmw.sa.gate", "mmw.sa.phases", "mmw.sa.product",
+             "mmw.sa.range_dft", "mmw.sa.depth")
 #: per call: how often each span opens, and the pipeline span each stage lies in
 CALLS = {
     "pointcloud": ({"mmw.pc": 1, **dict.fromkeys(PC_STAGES, 1)}, {"mmw.pc": PC_STAGES}),
@@ -39,6 +43,7 @@ CALLS = {
     "precise": ({"mmw.vel": 1, **dict.fromkeys(VEL_STAGES, 1), "mmw.vel.responses": 2,
                  "mmw.vel.precise": 1},
                 {"mmw.vel": VEL_STAGES + ("mmw.vel.precise",)}),
+    "sa": ({"mmw.sa": 1, **dict.fromkeys(SA_STAGES, 1)}, {"mmw.sa": SA_STAGES}),
 }
 STOPS = {"responses": ("mmw.vel.window_dft", "mmw.vel.responses"),
          "vx": ("mmw.vel.window_dft", "mmw.vel.responses", "mmw.vel.vx"),
@@ -67,6 +72,12 @@ def _call(cfg, inputs, kind, **kw):
     if kind == "combined":
         pipe = build_full_pipeline(cfg, device="cpu")
         return lambda: pipe(re, im, alt)
+    if kind == "sa":  # the depth head, streamed from the zero state
+        pipe = build_synthetic_aperture_pipeline(
+            cfg, num_frames=2, az_angle_bins_rad=np.deg2rad(np.linspace(-30, 30, 8)),
+            output="depth", device="cpu")
+        vels = torch.tensor([[0.2, 0.01, 0.0]] * FRAMES)
+        return lambda: pipe(re, im, vels, pipe.init_state())
     pipe = build_velocity_pipeline(cfg, device="cpu", enable_precise=kind == "precise", **kw)
     return lambda: pipe(re, im, alt)
 
