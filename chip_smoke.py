@@ -100,7 +100,10 @@ failure (exit code != 0):
    with the operations its own design spends (``kernel_own_ops``); the
    velocity peak picker's kernel on the velocity path's own dB maps
    [1024, 2, 70, 60] of those inputs, equal to its plain version bit for
-   bit, behind a busy device;
+   bit, behind a busy device; the synthetic-aperture steering-phase kernel
+   at the RadSAR cell's [1024, 960, 800] (``time_steering_phases``: the
+   pipeline's chained geometry of a seeded cruise, angles up to ~500 rad),
+   within ``STEERING_ATOL`` of its plain version;
 14. ground kernel: the altitude recursion of the ground scan against its
    plain version (a loop of T steps over tensors) on the same CUDA tensors,
    equal bit for bit, at T in {1, 7, 1024, 5000}, precise and not, with a
@@ -137,7 +140,8 @@ failure (exit code != 0):
    with a velocity step that the gate rejects, through
    ``build_synthetic_aperture_pipeline`` and the processor frame by frame
    (without and with calibration) on both devices: gates identical, maps
-   within the bar; with calibration the GPU's solve for the CPU's reflector
+   within the bar, each pipeline call one launch of the steering-phase
+   kernel; with calibration the GPU's solve for the CPU's reflector
    picks within the ``sar_ods`` golden's bar (rtol 1e-3, atol 1e-5) on every
    frame, and where both sides pick alike, their own calibrated geometry
    within it and the maps within 5e-3 of the maximum; the picks agree on at
@@ -281,7 +285,8 @@ failure (exit code != 0):
    the matched frames an angle bin apart or matched on one device only.
 
 ``python3 chip_smoke.py --kernel-times`` runs only the kernels' part of phase
-13: the beamforming, response, noise, detection, k-th-smallest and peak kernels (each is held
+13: the beamforming, response, noise, detection, k-th-smallest, peak and
+steering-phase kernels (each is held
 against its plain version before or while it is timed), and adds the sweeps
 that the default run leaves out: the detection kernel for one frame and at
 other windows, the k-th-smallest kernel at other widths, on rows with a
@@ -336,6 +341,19 @@ RANK_REPLACES = {
 #: the velocity peak picker: no Pallas kernel, plain jnp (pairwise masks under vmap)
 PEAK_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/prominent_peak.cu"
 PEAK_REPLACES = "mmwave_radar_processing_tpu/ops/peaks.py:255"
+#: the synthetic-aperture steering phases: no Pallas kernel, plain jnp
+STEERING_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/steering_phases.cu"
+STEERING_REPLACES = "mmwave_radar_processing_tpu/processors/synthetic_array.py:68"
+#: the RadSAR deployment the phases are timed at (port_bench's iwr1843-radsar-10hz):
+#: F = 8 frames of 100 chirps (E = 800), 60 x 16 directions (A = 960), batch 1024
+RADSAR_CFG = os.path.join(HERE, "configs", "RadSAR_1843_official.cfg")
+RADSAR_FRAMES, RADSAR_AZ, RADSAR_EL, RADSAR_BATCH = 8, (-30, 30, 60), (-15, 15, 16), 1024
+#: steering kernel vs its plain version: float32 angles of up to ~500 rad
+#: hold a few ulp of 3e-5 each, so the phases may differ by about that
+STEERING_ATOL = 1e-4
+#: float32 operations a phase: the dot product (a multiply and two FMAs) and
+#: the two scalings; sincosf not counted
+STEERING_OPS_PER_PHASE = 7
 #: the ground scan's recursion: no Pallas kernel, XLA's lax.scan
 GROUND_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/altitude_track.cu"
 GROUND_REPLACES = "mmwave_radar_processing_tpu/parallel/ground_pipeline.py:248"
@@ -2022,15 +2040,18 @@ def check_sa_slice(cfg, device):
     The gate's decisions equal, the maps within ``MAP_RTOL``; with
     calibration, the GPU's solve for the CPU's reflector picks within the
     golden's bars on every frame, and where both sides pick alike, their
-    own calibrated geometry and map too.
+    own calibrated geometry and map too.  Each pipeline call launches the
+    steering-phase kernel once; returns its launches over the phase.
     """
     from mmwave_radar_processing_tpu_torch import (
         SyntheticArrayBeamformerProcessor, build_synthetic_aperture_pipeline,
     )
+    from mmwave_radar_processing_tpu_torch.ops.kernels.steering import steering_phases
     from mmwave_radar_processing_tpu_torch.processors.synthetic_array import (
         CalibrationTargets,
     )
 
+    start = steering_phases.launches
     raw, tracks = sa_recording(cfg)
     planes = [torch.from_numpy(np.ascontiguousarray(f(raw)).astype(np.float32))
               for f in (np.real, np.imag)]
@@ -2040,8 +2061,11 @@ def check_sa_slice(cfg, device):
               max_vel=np.array([0.3, 0.05, 0.05]))
     for track, vel in tracks.items():
         vel_t = torch.from_numpy(vel)
-        mag, ok = no_kernel_launched("synthetic_aperture", lambda: gpu_pipe(
-            *(p.to(device) for p in planes), vel_t.to(device)))
+        before = steering_phases.launches
+        mag, ok = gpu_pipe(*(p.to(device) for p in planes), vel_t.to(device))
+        if steering_phases.launches != before + 1:
+            raise RuntimeError(f"synthetic aperture ({track}): the pipeline launched the "
+                               f"steering-phase kernel {steering_phases.launches - before} times")
         want_mag, want_ok = cpu_pipe(*planes, vel_t)
         if not torch.equal(ok.cpu(), want_ok):
             raise RuntimeError(f"synthetic aperture ({track}): gates differ")
@@ -2109,6 +2133,7 @@ def check_sa_slice(cfg, device):
         if n_ok - len(decided_apart) < MIN_CALIBRATION_AGREEMENT * n_ok:
             raise RuntimeError(f"synthetic aperture ({track}): the calibration picks agree on "
                                f"only {n_ok - len(decided_apart)} of {n_ok} frames")
+    return steering_phases.launches - start
 
 
 def time_altitude_track(pipeline, raw_re, raw_im):
@@ -2176,6 +2201,64 @@ def time_prominent_peak(cfg, raw_re, raw_im, alts):
          timed_behind_a_busy_device=True, launch_to_launch_ms=cuda_ms(kernel, 50),
          rows_found=int(got[1].sum()), **res)
     return res
+
+
+def steering_inputs(device, batch=RADSAR_BATCH, seed=22):
+    """The RadSAR cell's steering vectors ``(960, 3)`` and positions ``[batch, 3, 800]`` of a cruise.
+
+    The positions are the pipeline's own chained geometry of seeded
+    velocities around 0.21 m/s (angles up to ~500 rad), and ``lambda``.
+    """
+    from mmwave_radar_processing_tpu_torch import build_synthetic_aperture_pipeline, load_cfg
+    from mmwave_radar_processing_tpu_torch.processors.synthetic_array import chained_geometry
+
+    cfg = load_cfg(RADSAR_CFG, array_geometry="standard")
+    pipe = build_synthetic_aperture_pipeline(
+        cfg, num_frames=RADSAR_FRAMES, az_angle_bins_rad=np.deg2rad(np.linspace(*RADSAR_AZ)),
+        el_angle_bins_rad=np.deg2rad(np.linspace(*RADSAR_EL)), device=device)
+    rng = np.random.default_rng(seed)
+    vel = np.array([0.21, 0.0, 0.0]) + 0.01 * rng.standard_normal((batch, RADSAR_FRAMES, 3))
+    vel = torch.from_numpy(vel.astype(np.float32)).to(device)
+    geometry = chained_geometry(vel, pipe.chirp_times_s, pipe.frame_dt)  # [T, F, 3, C]
+    return pipe.steering, geometry.transpose(1, 2).reshape(batch, 3, -1), pipe.lambda_m
+
+
+def time_steering_phases(device):
+    """The steering-phase kernel and its plain version at the RadSAR cell's [1024, 960, 800], in turns.
+
+    Held within ``STEERING_ATOL`` of the plain version (max |diff| of the
+    complex values) before the turns.  No single library call computes the
+    phases.
+    """
+    from mmwave_radar_processing_tpu_torch.ops.kernels.steering import steering_phases
+    from mmwave_radar_processing_tpu_torch.processors import synthetic_array
+
+    steering, positions, lambda_m = steering_inputs(device)
+
+    def kernel():
+        return synthetic_array.steering_phases(steering, positions, lambda_m)
+
+    def plain():
+        return synthetic_array.steering_phases_reference(steering, positions, lambda_m)
+
+    launches = steering_phases.launches
+    got = kernel()
+    if steering_phases.launches != launches + 1:
+        raise RuntimeError("steering_phases did not launch its kernel")
+    err = float((got - plain()).abs().max())
+    max_angle = float((steering @ positions).abs().max()) * 2 * np.pi / lambda_m
+    del got
+    if not err <= STEERING_ATOL:
+        raise RuntimeError(f"steering kernel differs from its plain version by {err}")
+    kernel_ms, plain_ms, turns = take_turns(kernel, plain, 20, 5)
+    phases = positions.shape[0] * steering.shape[0] * positions.shape[-1]
+    # bytes: the steering vectors and positions once, a complex64 a phase
+    res = timing(kernel_ms, plain_ms, 4 * (steering.numel() + positions.numel()) + 8 * phases,
+                 STEERING_OPS_PER_PHASE * phases)
+    emit(phase="steering_kernel_timing",
+         shape=[positions.shape[0], steering.shape[0], positions.shape[-1]], turns=turns,
+         max_angle_rad=max_angle, max_abs_err=err, **res)
+    return {**res, "max_abs_err": err}
 
 
 def measure_ground_stages(ground, raw_re, raw_im):
@@ -3376,7 +3459,8 @@ def check_drawing_slice(cfg, device):
             "capon": per_frame.get("capon_power", 0) + pre["capon_power"],
             "bartlett_cov": pre["bartlett_power"],
             "bartlett_snapshots": per_frame.get("bartlett_power", 0),
-            "altitude": per_frame.get("altitude_track", 0) + pre["altitude_track"]}
+            "altitude": per_frame.get("altitude_track", 0) + pre["altitude_track"],
+            "steering": per_frame.get("steering_phases", 0) + pre["steering_phases"]}
 
 
 def check_angle_accuracy(device):
@@ -3659,7 +3743,7 @@ def build_kernels():
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
     names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select",
-             "altitude_track", "prominent_peak")
+             "altitude_track", "prominent_peak", "steering_phases")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -3700,6 +3784,7 @@ def kernel_times():
                                        loading=LOADING, device=device), raw_re, raw_im)
     time_prominent_peak(cfg, raw_re, raw_im, alts)
     del raw_re, raw_im, alts
+    time_steering_phases(device)
     time_responses(build_velocity_pipeline(cfg, device=device), device)
     time_noise(device)
     time_cfar(device, sweeps=True)
@@ -3759,7 +3844,7 @@ def main():
     ground_launches = check_ground_slice(cfg, device)
     check_velocity_api(cfg, device)
     check_spectral_slice(cfg, device, frames)
-    check_sa_slice(cfg, device)
+    sa_launches = check_sa_slice(cfg, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_slice_") as root:
         recording = write_recording_slice(cfg, root)
         rec_launches = check_recording_slice(cfg, device, recording)
@@ -3788,6 +3873,7 @@ def main():
     measure_path("ground_altitude", lambda: ground_altitude(raw_re, raw_im), device)
     track_ms = time_altitude_track(ground, raw_re, raw_im)
     peak_ms = time_prominent_peak(cfg, raw_re, raw_im, alts)
+    steering_ms = time_steering_phases(device)
     measure_ground_stages(ground, raw_re, raw_im)
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
@@ -3889,6 +3975,13 @@ def main():
          + entry_launches.get("prominent_peak", 0)
          + multidevice_launches.get("prominent_peak", 0),
          "max_abs_err": 0.0, **peak_ms},
+        # no TPU kernel's counterpart: the JAX package's steering phases are
+        # plain jnp; one launch a synthetic-aperture pipeline call, a
+        # processor frame, a calibration and a rank's element-sharded beam
+        {"name": "steering_phases", "route": "cuda", "source": STEERING_SOURCE,
+         "replaces": STEERING_REPLACES,
+         "launches": sa_launches + drawing_launches["steering"]
+         + multidevice_launches.get("steering_phases", 0), **steering_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,7 @@ import torch
 def wrappers():
     """Every hand-written kernel's wrapper by name; each counts its launches in ``.launches``."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import (
-        altitude_track, beamform, doppler_az, os_cfar, peaks, rank_select,
+        altitude_track, beamform, doppler_az, os_cfar, peaks, rank_select, steering,
     )
 
     return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect,
@@ -15,7 +15,8 @@ def wrappers():
             "doppler_az_responses": doppler_az.doppler_az_responses,
             "capon_power": beamform.capon_power, "bartlett_power": beamform.bartlett_power,
             "altitude_track": altitude_track.altitude_track,
-            "prominent_peak": peaks.prominent_peak}
+            "prominent_peak": peaks.prominent_peak,
+            "steering_phases": steering.steering_phases}
 
 
 def count_launches(fn):

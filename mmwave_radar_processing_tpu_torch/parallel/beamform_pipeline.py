@@ -24,10 +24,12 @@ the strongest range bin per direction, ``-1`` below the floor or where the
 gate fails, and that direction's peak magnitude.
 
 The gate, the geometry, the phases and the depth map are
-``processors.synthetic_array``'s functions.  No step has a hand-written
-kernel: the JAX package computes the product as a plain ``@``.  Precision
-is full float32 with TF32 off.  The stages are ``mmw.sa.*`` spans inside
-``mmw.sa`` (``utils/profiling.annotate``).
+``processors.synthetic_array``'s functions.  On the GPU the steering phases
+are one hand-written kernel (``csrc/steering_phases.cu``), which writes
+each phase once where the plain version made four passes over the angles;
+the product and the range DFT are cuBLAS GEMMs, as the JAX package leaves
+them to XLA.  Precision is full float32 with TF32 off.  The stages are
+``mmw.sa.*`` spans inside ``mmw.sa`` (``utils/profiling.annotate``).
 """
 
 from __future__ import annotations

@@ -12,9 +12,12 @@
   spectrum run replicated (``ops.beamform.capon_from_covariance``,
   ``bartlett_from_covariance``).
 
-Neither launches a hand-written kernel: the JAX package's forms reach no
-Pallas kernel either.  The sums are taken in another order than the dense
-form's, so the results are close to it, not bit-equal.  The data is
+The element-sharded beamformer forms its phases with
+``processors.synthetic_array.steering_phases``, which on the GPU is a
+hand-written kernel (no Pallas kernel's counterpart); the snapshot-sharded
+Capon launches none: the JAX package's forms reach no Pallas kernel.  The
+sums are taken in another order than the dense form's, so the results are
+close to it, not bit-equal.  The data is
 ``complex64`` throughout.
 """
 

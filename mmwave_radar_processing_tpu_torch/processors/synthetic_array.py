@@ -6,7 +6,9 @@ The whole beamformer is one complex product and a batched FFT:
     beamformed     = (data[ns, E] * hamming[E]) @ phases.T        (one matmul)
     response       = FFT(hann[ns] * beamformed, axis=0)
 
-The per-frame element positions, the velocity consistency gate and the phase
+On CUDA tensors the phases come from a hand-written kernel
+(:func:`steering_phases`), the rest from library calls.  The per-frame
+element positions, the velocity consistency gate and the phase
 self-calibration are plain functions over an explicit ring-buffer state
 (:class:`SyntheticArrayState`).  The gate and the geometry take any leading
 batch axes, which the batched pipeline (``parallel/beamform_pipeline.py``)
@@ -34,6 +36,7 @@ import torch
 
 from mmwave_radar_processing_tpu_torch.config import RadarConfig
 from mmwave_radar_processing_tpu_torch.ops import dft, peaks as peaks_ops, windows
+from mmwave_radar_processing_tpu_torch.ops.kernels import steering as steering_kernel
 from mmwave_radar_processing_tpu_torch.processors.base import (
     Processor,
     as_complex64,
@@ -57,9 +60,9 @@ class CalibrationTargets(NamedTuple):
     ok: torch.Tensor  # bool []: three range peaks, and an azimuth peak in each row
 
 
-def steering_phases(steering: torch.Tensor, positions: torch.Tensor,
-                    lambda_m: float) -> torch.Tensor:
-    """``exp(j*2*pi*(steering @ positions)/lambda)``: ``(A, 3) x [..., 3, E] -> [..., A, E]`` complex64.
+def steering_phases_reference(steering: torch.Tensor, positions: torch.Tensor,
+                              lambda_m: float) -> torch.Tensor:
+    """The plain version of :func:`steering_phases`: a GEMM, two in-place scalings and ``torch.polar``.
 
     The angles are scaled in place and the unit modulus is a broadcast
     scalar, so a batch of phases holds the float32 angles and the result
@@ -68,6 +71,23 @@ def steering_phases(steering: torch.Tensor, positions: torch.Tensor,
     phase = steering @ positions
     phase.mul_(2 * np.pi).div_(lambda_m)
     return torch.polar(torch.ones((), dtype=phase.dtype, device=phase.device), phase)
+
+
+def steering_phases(steering: torch.Tensor, positions: torch.Tensor,
+                    lambda_m: float) -> torch.Tensor:
+    """``exp(j*2*pi*(steering @ positions)/lambda)``: ``(A, 3) x [..., 3, E] -> [..., A, E]`` complex64.
+
+    Dispatches on the device of ``positions``: a CPU tensor takes the plain
+    version :func:`steering_phases_reference`, any other the hand-written
+    CUDA kernel (:mod:`..ops.kernels.steering`), which forms each phase in
+    registers and writes it once, or raises: it takes float32 CUDA tensors
+    alone (views are made contiguous first).  There is no fallback from one
+    to the other.
+    """
+    if positions.device.type == "cpu":
+        return steering_phases_reference(steering, positions, lambda_m)
+    return steering_kernel.steering_phases(steering.contiguous(), positions.contiguous(),
+                                           lambda_m)
 
 
 def beamform(data: torch.Tensor, positions: torch.Tensor, steering: torch.Tensor,

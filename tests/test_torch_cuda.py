@@ -7,6 +7,7 @@ JAX, where ``tests/conftest.py`` (which imports JAX) cannot load:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import json
 import os
 
 import numpy as np
@@ -32,15 +33,18 @@ from mmwave_radar_processing_tpu_torch.ops.kernels import doppler_az as dkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import os_cfar as kernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import peaks as pkernel
 from mmwave_radar_processing_tpu_torch.ops.kernels import rank_select
+from mmwave_radar_processing_tpu_torch.ops.kernels import steering as skernel
 from mmwave_radar_processing_tpu_torch.processors import (
     PointCloudGenerator,
     RangeDetector,
     RangeDopplerDetectorSequential,
 )
 from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import MIN_PROMINENCE_DB, _db
+from mmwave_radar_processing_tpu_torch.processors import synthetic_array as sa
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat
 
 import peak_rows
+from steering_inputs import LAMBDA_M, STEERING_ATOL, cruise_positions, steering_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -882,3 +886,111 @@ def test_ground_pipeline_on_cuda_matches_cpu_and_launches_the_kernel_once(cuda):
     assert (got.altitude.cpu() - want.altitude).abs().max() <= 5e-3
     assert int(want.count.sum()) > 0
     assert torch.equal(got.count.cpu(), want.count)
+
+
+# --------------------------------------------------------------------------- #
+# the synthetic-aperture steering phases
+# --------------------------------------------------------------------------- #
+RADSAR_CFG = os.path.join(os.path.dirname(__file__), "..", "configs",
+                          "RadSAR_1843_official.cfg")
+STEERING_CASES = {
+    # the RadSAR cell's widths: A = 960 directions, E = 800 elements
+    "cell": lambda: (steering_grid(), cruise_positions(3)),
+    "positions_2d": lambda: (steering_grid(), cruise_positions(1)[0]),
+    "odd_e": lambda: (steering_grid(7, 3), cruise_positions(2, chirps=99, num_frames=3)),
+    "calibration_a3": lambda: (steering_grid(3, 1), cruise_positions(1, num_frames=4)[0]),
+    # E = 4100 and 4101: three tiles of elements, the last 4 and 5 long
+    "element_tiles": lambda: (steering_grid(5, 2), cruise_positions(2, num_frames=41)),
+    "odd_element_tiles": lambda: (steering_grid(33, 1),
+                                  cruise_positions(1, num_frames=3, chirps=1367)),
+    "leading_axes": lambda: (steering_grid(4, 4),
+                             cruise_positions(6, num_frames=2).reshape(2, 3, 3, -1)),
+    # a strided view: the dispatch makes it contiguous for the kernel
+    "positions_view": lambda: (steering_grid(6, 2), cruise_positions(2, chirps=200)[..., ::2]),
+}
+
+
+@pytest.mark.parametrize("case", list(STEERING_CASES))
+def test_steering_kernel_equals_plain_version(cuda, case):
+    steering, positions = (t.to(cuda) for t in STEERING_CASES[case]())
+    before = skernel.steering_phases.launches
+    got = sa.steering_phases(steering, positions, LAMBDA_M)
+    torch.cuda.synchronize()
+    assert skernel.steering_phases.launches == before + 1
+    want = sa.steering_phases_reference(steering, positions, LAMBDA_M)
+    assert got.shape == want.shape == (*positions.shape[:-2], steering.shape[0],
+                                       positions.shape[-1])
+    assert got.dtype == torch.complex64 and got.is_contiguous()
+    assert float((got - want).abs().max()) <= STEERING_ATOL
+    if case == "cell":
+        max_angle = float((steering @ positions).abs().max()) * 2 * np.pi / LAMBDA_M
+        assert max_angle > 400  # the range the bar is set for
+
+
+def test_steering_kernel_counts_one_launch_a_call_and_none_for_an_empty_batch(cuda):
+    steering, positions = steering_grid(6, 2).to(cuda), cruise_positions(2).to(cuda)
+    before = skernel.steering_phases.launches
+    for k in range(1, 4):
+        sa.steering_phases(steering, positions, LAMBDA_M)
+        assert skernel.steering_phases.launches == before + k
+    for shape in [(0, 3, 800), (2, 3, 0)]:
+        out = sa.steering_phases(steering, torch.empty(shape, device=cuda), LAMBDA_M)
+        assert out.shape == (shape[0], 12, shape[2]) and out.dtype == torch.complex64
+    out = sa.steering_phases(steering[:0], positions, LAMBDA_M)
+    assert out.shape == (2, 0, 800)
+    torch.cuda.synchronize()
+    assert skernel.steering_phases.launches == before + 3
+
+
+@pytest.mark.parametrize("case", ["float64", "strided_steering", "steering_shape",
+                                  "positions_shape", "mixed_devices"])
+def test_steering_kernel_rejects_what_it_does_not_take(cuda, case):
+    steering, positions = steering_grid(4, 2).to(cuda), cruise_positions(2).to(cuda)
+    err = ValueError
+    if case == "float64":
+        positions, err = positions.double(), TypeError
+    elif case == "strided_steering":
+        steering = torch.zeros((8, 6), device=cuda)[:, ::2]
+    elif case == "steering_shape":
+        steering = torch.zeros((8, 4), device=cuda)
+    elif case == "positions_shape":
+        positions = torch.zeros((2, 800, 3), device=cuda)
+    else:
+        steering = steering.cpu()
+    before = skernel.steering_phases.launches
+    with pytest.raises(err):
+        skernel.steering_phases(steering, positions, LAMBDA_M)
+    assert skernel.steering_phases.launches == before
+
+
+def test_synthetic_aperture_pipeline_on_cuda_meets_the_plain_reference(cuda):
+    """One call of the deployment's pipeline against the benchmark's plain reference.
+
+    ``port_bench/reference/sar.py`` builds each frame's aperture anew; the
+    pipeline's depth map is held to the cell's own limits.
+    """
+    from port_bench.gen import flight as gen_flight
+    from port_bench.reference import sar as ref_sar
+    from port_bench.reference.radar import parse_cfg
+    from port_bench.traffic.sar import build_pipeline, sar_numbers
+
+    root = os.path.join(os.path.dirname(__file__), "..", "port_bench")
+    with open(os.path.join(root, "configs", "iwr1843-radsar-10hz.json")) as fh:
+        p = json.load(fh)["processing"]
+    with open(os.path.join(root, "workloads", "radsar1843-flight-bulk.json")) as fh:
+        limits = json.load(fh)["limits"]
+    with open(RADSAR_CFG) as fh:
+        radar = parse_cfg(fh.read().splitlines())
+    n = 64
+    f = gen_flight.flight(radar, 0.1, n, 2 ** 31 + 22, cuda)
+    pipe = build_pipeline(load_cfg(RADSAR_CFG, array_geometry="standard"), p, cuda)
+    skernel.steering_phases.launches = 0
+    with torch.no_grad():
+        got = pipe(f.re, f.im, f.vels)
+    torch.cuda.synchronize()
+    assert skernel.steering_phases.launches == 1
+    ref = ref_sar.depth_maps(f.re, f.im, f.vels, np.arange(n), radar, p, 0.1)
+    numbers = sar_numbers(*(t.cpu().numpy() for t in got), ref)
+    assert int(ref.ok.sum()) > n // 2  # the cruise passes the gate after the first F-1 frames
+    for name, limit in limits.items():
+        assert numbers[name] <= limit, (name, numbers)
