@@ -163,6 +163,24 @@ def range_dft_channels(
     return torch.matmul(rng.transpose(0, 1), sel)
 
 
+def range_dft_input(
+    raw: torch.Tensor, channels: torch.Tensor, rng: torch.Tensor, *,
+    reformat_input: bool, num_rx: int, cfgs_per_loop: int,
+) -> torch.Tensor:
+    """Range DFT of ``channels`` of a pipeline's input planes.
+
+    With ``reformat_input`` the input is a raw cube and the reformat is folded
+    into the selection (:func:`range_dft_channels`); without, it is an
+    already reformatted ``[B, virtual channels, ns, loops]`` cube and the
+    channels are a plain gather.  ``channels`` is an int64 tensor on
+    ``raw``'s device.
+    """
+    if reformat_input:
+        return range_dft_channels(raw, channels, rng, num_rx=num_rx,
+                                  cfgs_per_loop=cfgs_per_loop)
+    return torch.matmul(rng.transpose(0, 1), raw[:, channels])
+
+
 def rd_values(
     R: torch.Tensor, dop: torch.Tensor, r_idx: torch.Tensor,
     v_idx: torch.Tensor,

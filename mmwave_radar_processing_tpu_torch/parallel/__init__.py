@@ -2,7 +2,8 @@
 
 - ``pipeline``          — raw cubes -> point clouds (the main path).
 - ``velocity_pipeline`` — ADC-domain ego velocity, coarse and precise.
-- ``full_pipeline``     — point clouds and velocity from one range DFT.
+- ``full_pipeline``     — point clouds and velocity, each half on its own
+  conversion of the planes and its own range DFT.
 - ``capon_pipeline``    — Capon / Bartlett range-azimuth heatmaps.
 - ``ground_pipeline``   — the altimeter-gated ground scan over a recording.
 - ``spectral_pipeline`` — range-Doppler, range-angle and Doppler-azimuth
@@ -10,6 +11,8 @@
 - ``beamform_pipeline`` — synthetic-aperture beamforming over a recording.
 - ``viewer_pipeline``   — the viewer's payloads of a whole recording, the
   ground detector's gated tail and the DBS stage.
+- ``point_stages``      — what those pipelines share, each written once: the
+  planes check, the antenna union and the angle head (detections -> points).
 - ``recording``         — a CPSL recording served batch by batch through the
   combined, point-cloud or ground pipeline (imported as a module).
 

@@ -43,7 +43,7 @@ from torch import nn
 from mmwave_radar_processing_tpu_torch.config import RadarConfig
 from mmwave_radar_processing_tpu_torch.ops import dft, windows
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import set_full_fp32
-from mmwave_radar_processing_tpu_torch.parallel.spectral_pipeline import check_planes
+from mmwave_radar_processing_tpu_torch.parallel.point_stages import check_planes
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.synthetic_array import (
     chained_geometry,

@@ -2,9 +2,9 @@
 
 Raw ADC cubes in, range-azimuth power maps out.  Per frame:
 
-1. the windowed range DFT of the selected antennas, with the virtual-array
-   reformat folded into the channel selection (``reformat_input=True``), or
-   of the selected channels of an already reformatted cube -> complex
+1. the windowed range DFT of the selected antennas (``ops.dft.range_dft_input``:
+   the virtual-array reformat folded into the channel selection, or the
+   selected channels of an already reformatted cube) -> complex
    ``[B, A, W, K]`` (range bins ``W``, chirps ``K`` as snapshots);
 2. per (frame, range bin) the snapshot covariance and the Capon (loaded
    complex Cholesky) or Bartlett spectrum on the reference angle grid
@@ -87,12 +87,9 @@ class CaponPipeline(nn.Module):
 
     def range_dft(self, raw_re: torch.Tensor, raw_im: torch.Tensor) -> torch.Tensor:
         """Windowed range DFT of the selected channels: complex ``[B, A, ns, K]``."""
-        raw = torch.complex(raw_re, raw_im)
-        if self.reformat_input:
-            return dft.range_dft_channels(raw, self.chans, self.rng_dft,
-                                          num_rx=self.num_rx,
-                                          cfgs_per_loop=self.cpl)
-        return torch.matmul(self.rng_dft.transpose(0, 1), raw[:, self.chans])
+        return dft.range_dft_input(torch.complex(raw_re, raw_im), self.chans, self.rng_dft,
+                                   reformat_input=self.reformat_input, num_rx=self.num_rx,
+                                   cfgs_per_loop=self.cpl)
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor) -> torch.Tensor:
         self._check_inputs(raw_re, raw_im)

@@ -15,10 +15,11 @@ frame; everything else is batched over the recording:
    pick, so refining all three and picking afterwards gives the same values;
 3. the recursion (:func:`..ops.altitude.altitude_track`): one hand-written
    CUDA kernel on a GPU, the plain loop on the CPU;
-4. ``detect_frames``: the range DFT with the virtual-array reformat folded
-   in, the Doppler DFT of channel 0 and its magnitude, the altitude row gate,
-   the 1D OS-CFAR by counting, compaction of the first ``max_dets``
-   detections, per-detection angles, and FLU points (invalid rows zero).
+4. ``detect_frames``: the point-cloud pipeline's front on the antenna
+   union (``point_stages.antenna_union``, ``ops.dft.range_dft_input``), the
+   Doppler DFT of channel 0 and its magnitude, the altitude row gate, the 1D
+   OS-CFAR by counting, compaction of the first ``max_dets`` detections, and
+   the shared angle head (``point_stages.AngleHead``) for the FLU points.
 
 Precision is full float32 with TF32 off; the pipeline has no weights and uses
 no randomness.
@@ -39,11 +40,13 @@ from mmwave_radar_processing_tpu_torch.ops.altitude import altitude_track
 from mmwave_radar_processing_tpu_torch.ops.cfar import os_1d_detect
 from mmwave_radar_processing_tpu_torch.ops.masked import mask_to_indices_2d
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import set_full_fp32
+from mmwave_radar_processing_tpu_torch.parallel.point_stages import (
+    AngleHead,
+    antenna_union,
+    check_planes,
+)
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.detection import COS_60
-from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
-    spherical_to_cartesian_flu,
-)
 
 DEFAULT_VEL_CFAR_PARAMS = dict(num_train=12, num_guard=4, rho=0.5, alpha=15.0)
 STOP_AFTER = (None, "altitude")
@@ -107,20 +110,11 @@ class GroundPipeline(nn.Module):
         edge_d = self.cfar["num_train"] + self.cfar["num_guard"]
         self.interior = (0, edge_d) if loops - 2 * edge_d > 0 else None
 
-        az_idx = np.asarray(az_antenna_idxs, int)
-        el_idx = np.asarray(el_antenna_idxs, int)
-        self.has_az, self.has_el = bool(az_idx.size), bool(el_idx.size)
-        union_idx, az_pos, el_pos, _ = dft.aoa_union_layout(az_idx, el_idx)
-        if union_idx.size and 0 in union_idx:
-            chans = union_idx
-            self.ch0_pos, self.aoa_start = int(np.searchsorted(union_idx, 0)), 0
-        else:
-            chans = np.concatenate([[0], union_idx]).astype(int)
-            self.ch0_pos, self.aoa_start = 0, 1
-        self.min_planes = self.num_rx if reformat_input else int(chans.max()) + 1
+        layout = antenna_union(az_antenna_idxs, el_antenna_idxs,
+                               reformat_input=reformat_input, num_rx=self.num_rx)
+        self.min_planes = layout.min_planes
+        self.ch0_pos, self.aoa_start = layout.ch0_pos, layout.aoa_start
 
-        self.range_res = cfg.range_res_m
-        self.vel0, self.vel_res = -cfg.vel_max_m_s, cfg.vel_res_m_s
         plain = grids.range_bins(cfg, variant="plain")
         self.max_plain = float(np.max(plain))
         # altimeter zoom frequency mapping (reference range_resp.py:84-89)
@@ -132,35 +126,15 @@ class GroundPipeline(nn.Module):
         # the altimeter's range DFT is the same Hann-windowed matrix
         self.register_buffer("rng_dft", dft.to_matrix(rng_factors))
         self.register_buffer("dop_dft", dft.to_matrix(dop_factors))
-        self.register_buffer("az_dft", dft.to_matrix(dft.aoa_factors(
-            len(az_idx) or 1, num_angle_bins, shift_az_resp)))
-        self.register_buffer("el_dft", dft.to_matrix(dft.aoa_factors(
-            len(el_idx) or 1, num_angle_bins, shift_el_resp)))
-        self.register_buffer("angle_bins", torch.from_numpy(
-            grids.angle_bins(num_angle_bins).astype(np.float32)))
         self.register_buffer("plain_bins", torch.from_numpy(plain.astype(np.float32)))
         self.register_buffer("eps_bins", torch.from_numpy(
             grids.range_bins(cfg, variant="eps").astype(np.float32)))
-        self.register_buffer("chans", torch.from_numpy(chans.astype(np.int64)))
-        self.register_buffer("az_pos", torch.from_numpy(az_pos.astype(np.int64)))
-        self.register_buffer("el_pos", torch.from_numpy(el_pos.astype(np.int64)))
+        self.register_buffer("chans", torch.from_numpy(layout.chans.astype(np.int64)))
+        self.head = AngleHead(cfg, az_pos=layout.az_pos, el_pos=layout.el_pos,
+                              num_angle_bins=num_angle_bins, shift_az_resp=shift_az_resp,
+                              shift_el_resp=shift_el_resp)
 
     # ------------------------------------------------------------------ #
-    def _check_planes(self, raw_re: torch.Tensor, raw_im: torch.Tensor) -> None:
-        if raw_re.shape != raw_im.shape or raw_re.dim() != 4 \
-                or tuple(raw_re.shape[-2:]) != self.frame_shape \
-                or raw_re.shape[1] < self.min_planes:
-            raise ValueError(
-                f"expected planes [T, >={self.min_planes}, {self.frame_shape[0]}, "
-                f"{self.frame_shape[1]}], got {tuple(raw_re.shape)} and "
-                f"{tuple(raw_im.shape)}")
-        for plane in (raw_re, raw_im):
-            if plane.dtype != torch.float32:
-                raise TypeError(f"expected float32 planes, got {plane.dtype}")
-            if plane.device != self.rng_dft.device:
-                raise ValueError(f"input on {plane.device}, pipeline on "
-                                 f"{self.rng_dft.device}")
-
     def loop0_chirps(self, raw: torch.Tensor) -> torch.Tensor:
         """``complex64 [T, V, ns]``: the loop-0 chirp of every virtual channel.
 
@@ -203,7 +177,8 @@ class GroundPipeline(nn.Module):
 
     def altitude_inputs(self, raw_re: torch.Tensor, raw_im: torch.Tensor):
         """The recursion's inputs ``(cand, valid, zbins, zvalid)`` of a recording (refinements None unless precise)."""
-        self._check_planes(raw_re, raw_im)
+        check_planes(raw_re, raw_im, frame_shape=self.frame_shape,
+                     min_planes=self.min_planes, device=self.rng_dft.device)
         return self._altitude_inputs(torch.complex(raw_re, raw_im))
 
     def _altitude_inputs(self, raw: torch.Tensor):
@@ -223,11 +198,9 @@ class GroundPipeline(nn.Module):
 
     def detect_frames(self, raw: torch.Tensor, corrected: torch.Tensor):
         """Stateless detection of every frame at its altitude: ``(points, valid, count)``."""
-        if self.reformat_input:
-            R = dft.range_dft_channels(raw, self.chans, self.rng_dft,
-                                       num_rx=self.num_rx, cfgs_per_loop=self.cpl)
-        else:
-            R = torch.matmul(self.rng_dft.transpose(0, 1), raw[:, self.chans])
+        R = dft.range_dft_input(raw, self.chans, self.rng_dft,
+                                reformat_input=self.reformat_input, num_rx=self.num_rx,
+                                cfgs_per_loop=self.cpl)
         mag = dft.cabs(torch.matmul(R[:, self.ch0_pos], self.dop_dft))  # [T, W, V]
 
         # altitude row gate: nearest bins, inclusive (reference :89-103)
@@ -241,23 +214,15 @@ class GroundPipeline(nn.Module):
         det_mask = row_gate[:, :, None] & os_1d_detect(mag, **self.cfar)
         r_i, v_i, valid, count = mask_to_indices_2d(det_mask, self.max_dets,
                                                     interior=self.interior)
-        az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
-        if self.has_az or self.has_el:
-            vals = dft.rd_values(R[:, self.aoa_start:], self.dop_dft, r_i, v_i)
-        if self.has_az:
-            az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.angle_bins)
-        if self.has_el:
-            el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.angle_bins)
-        ranges = r_i.to(torch.float32) * self.range_res
-        vels = self.vel0 + v_i.to(torch.float32) * self.vel_res
-        pts = spherical_to_cartesian_flu(ranges, az, el, vels)
-        return torch.where(valid[..., None], pts, 0.0), valid, count
+        pts = self.head(R[:, self.aoa_start:], self.dop_dft, r_i, v_i, valid)
+        return pts, valid, count
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor, init_altitude=None):
         start = self.min_altitude_m if init_altitude is None else init_altitude
         init = torch.as_tensor(start, dtype=torch.float32,
                                device=self.rng_dft.device).reshape(())
-        self._check_planes(raw_re, raw_im)
+        check_planes(raw_re, raw_im, frame_shape=self.frame_shape,
+                     min_planes=self.min_planes, device=self.rng_dft.device)
         raw = torch.complex(raw_re, raw_im)
         alts, final = self.track(*self._altitude_inputs(raw), init)
         if self.stop_after == "altitude":

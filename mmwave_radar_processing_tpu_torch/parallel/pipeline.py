@@ -4,17 +4,17 @@ The port of ``build_point_cloud_pipeline`` with the ``union`` dataflow, the
 main path of the system.  Per frame:
 
 1. windowed range DFT of the AoA antenna union (plus channel 0), with the
-   virtual-array reformat folded into the channel selection -> ``R``;
+   virtual-array reformat folded into the channel selection -> ``R``
+   (``point_stages.antenna_union``, ``ops.dft.range_dft_input``);
 2. Doppler DFT of channel 0 and its magnitude -> the CFAR map;
 3. counting OS-CFAR 2D detection and
 4. compaction of the first ``max_dets`` detections, row-major (on a GPU one
    hand-written CUDA kernel does both: ``ops/cfar.os_2d_detect_compact``);
-5. the detected cells' values on the union, gathered from ``R``;
-6. azimuth and elevation from a zero-padded angle DFT and its argmax;
-7. conversion to cartesian FLU points; invalid rows are zero.
+5. the shared angle head (``point_stages.AngleHead``) on the union: the
+   detections' angles and FLU points, invalid rows zero.
 
 Under ``torch.profiler`` a call is the span ``mmw.pc``, split into
-``mmw.pc.spectral`` (1-2), ``mmw.pc.cfar`` (3-4) and ``mmw.pc.aoa`` (5-7).
+``mmw.pc.spectral`` (1-2), ``mmw.pc.cfar`` (3-4) and ``mmw.pc.aoa`` (5).
 
 The pipeline's state is its constants (DFT matrices, angle bins, antenna
 layout, CFAR geometry); it has no learned weights and uses no randomness.
@@ -29,14 +29,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
+from mmwave_radar_processing_tpu_torch.config import RadarConfig
 from mmwave_radar_processing_tpu_torch.ops import dft
 from mmwave_radar_processing_tpu_torch.ops.cfar import os_2d_detect_compact
 from mmwave_radar_processing_tpu_torch.parallel.mesh import frame_slice
-from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
-from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
-    spherical_to_cartesian_flu,
+from mmwave_radar_processing_tpu_torch.parallel.point_stages import (
+    AngleHead,
+    antenna_union,
+    check_planes,
 )
+from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
 
 DEFAULT_CFAR_PARAMS = dict(num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.0)
@@ -45,8 +47,8 @@ DEFAULT_CFAR_PARAMS = dict(num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.
 _FACTOR_KEYS = {
     "rng_dft": ("rng_cos", "rng_sin"),
     "dop_dft": ("dop_cos", "dop_sin"),
-    "az_dft": ("az_cos", "az_sin"),
-    "el_dft": ("el_cos", "el_sin"),
+    "head.az_dft": ("az_cos", "az_sin"),
+    "head.el_dft": ("el_cos", "el_sin"),
 }
 #: structural constants: checked against the pipeline's own, never overwritten
 _LAYOUT_KEYS = ("union_idx", "az_pos", "el_pos")
@@ -100,63 +102,27 @@ class PointCloudPipeline(nn.Module):
         self.frame_shape = (ns, loops * self.cpl) if reformat_input else (ns, loops)
         self.cfar_params = dict(cfar_params)
         self.max_dets = max_dets
-        # affine bin grids (exact: the reference grids are arange-generated)
-        self.range_res = cfg.range_res_m
-        self.vel0, self.vel_res = -cfg.vel_max_m_s, cfg.vel_res_m_s
-
-        # union of the antenna subsets; channel 0 (the CFAR map) is computed
-        # whether or not the AoA union contains it
-        az_idx = np.asarray(az_antenna_idxs, int)
-        el_idx = np.asarray(el_antenna_idxs, int)
-        self.has_az, self.has_el = bool(az_idx.size), bool(el_idx.size)
-        self.union_idx, az_pos, el_pos, _ = dft.aoa_union_layout(az_idx, el_idx)
-        if 0 in self.union_idx:
-            chans = self.union_idx
-            self.ch0_pos = int(np.searchsorted(self.union_idx, 0))
-            self.aoa_start = 0
-        else:
-            chans = np.concatenate([[0], self.union_idx])
-            self.ch0_pos, self.aoa_start = 0, 1
-        # planes the input must hold: receivers of a raw cube, virtual channels
-        # of a reformatted one
-        self.min_planes = self.num_rx if reformat_input else int(chans.max()) + 1
+        layout = antenna_union(az_antenna_idxs, el_antenna_idxs,
+                               reformat_input=reformat_input, num_rx=self.num_rx)
+        self.union_idx, self.min_planes = layout.union_idx, layout.min_planes
+        self.ch0_pos, self.aoa_start = layout.ch0_pos, layout.aoa_start
 
         rng_factors, dop_factors = dft.range_doppler_factors(ns, loops)
         self.register_buffer("rng_dft", dft.to_matrix(rng_factors))
         self.register_buffer("dop_dft", dft.to_matrix(dop_factors))
-        self.register_buffer("az_dft", dft.to_matrix(dft.aoa_factors(
-            len(az_idx) or 1, num_angle_bins, shift_az_resp)))
-        self.register_buffer("el_dft", dft.to_matrix(dft.aoa_factors(
-            len(el_idx) or 1, num_angle_bins, shift_el_resp)))
-        self.register_buffer("angle_bins", torch.from_numpy(
-            grids.angle_bins(num_angle_bins).astype(np.float32)))
-        self.register_buffer("chans", torch.from_numpy(chans.astype(np.int64)))
-        self.register_buffer("az_pos", torch.from_numpy(az_pos.astype(np.int64)))
-        self.register_buffer("el_pos", torch.from_numpy(el_pos.astype(np.int64)))
+        self.register_buffer("chans", torch.from_numpy(layout.chans.astype(np.int64)))
+        self.head = AngleHead(cfg, az_pos=layout.az_pos, el_pos=layout.el_pos,
+                              num_angle_bins=num_angle_bins, shift_az_resp=shift_az_resp,
+                              shift_el_resp=shift_el_resp)
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor) -> PointCloudBatch:
-        if raw_re.shape != raw_im.shape or raw_re.dim() != 4 \
-                or tuple(raw_re.shape[-2:]) != self.frame_shape \
-                or raw_re.shape[1] < self.min_planes:
-            raise ValueError(
-                f"expected planes [B, >={self.min_planes}, {self.frame_shape[0]}, "
-                f"{self.frame_shape[1]}], got {tuple(raw_re.shape)} and "
-                f"{tuple(raw_im.shape)}")
-        for plane in (raw_re, raw_im):
-            if plane.dtype != torch.float32:
-                raise TypeError(f"expected float32 planes, got {plane.dtype}")
-            if plane.device != self.rng_dft.device:
-                raise ValueError(f"input on {plane.device}, pipeline on "
-                                 f"{self.rng_dft.device}")
-
+        check_planes(raw_re, raw_im, frame_shape=self.frame_shape,
+                     min_planes=self.min_planes, device=self.rng_dft.device)
         with annotate("mmw.pc"):
             with annotate("mmw.pc.spectral"):
-                raw = torch.complex(raw_re, raw_im)
-                if self.reformat_input:
-                    R = dft.range_dft_channels(raw, self.chans, self.rng_dft,
-                                               num_rx=self.num_rx, cfgs_per_loop=self.cpl)
-                else:
-                    R = torch.matmul(self.rng_dft.transpose(0, 1), raw[:, self.chans])
+                R = dft.range_dft_input(torch.complex(raw_re, raw_im), self.chans,
+                                        self.rng_dft, reformat_input=self.reformat_input,
+                                        num_rx=self.num_rx, cfgs_per_loop=self.cpl)
                 rd0 = torch.matmul(R[:, self.ch0_pos], self.dop_dft)  # [B, W, V]
                 mag = dft.cabs(rd0)
             with annotate("mmw.pc.cfar"):
@@ -165,17 +131,7 @@ class PointCloudPipeline(nn.Module):
             del mag  # the CFAR map is not held through the angle stage
 
             with annotate("mmw.pc.aoa"):
-                az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
-                if self.has_az or self.has_el:
-                    vals = dft.rd_values(R[:, self.aoa_start:], self.dop_dft, r_i, v_i)
-                if self.has_az:
-                    az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.angle_bins)
-                if self.has_el:
-                    el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.angle_bins)
-                ranges = r_i.to(torch.float32) * self.range_res
-                vels = self.vel0 + v_i.to(torch.float32) * self.vel_res
-                pts = spherical_to_cartesian_flu(ranges, az, el, vels)
-                pts = torch.where(valid[..., None], pts, 0.0)
+                pts = self.head(R[:, self.aoa_start:], self.dop_dft, r_i, v_i, valid)
         return PointCloudBatch(pts, valid, count)
 
 
@@ -249,8 +205,8 @@ def load_reference_constants(pipeline: PointCloudPipeline,
                          f"{sorted(expected - set(consts))}, unknown "
                          f"{sorted(set(consts) - expected)}")
     layout = {"union_idx": pipeline.union_idx,
-              "az_pos": pipeline.az_pos.cpu().numpy(),
-              "el_pos": pipeline.el_pos.cpu().numpy()}
+              "az_pos": pipeline.head.az_pos.cpu().numpy(),
+              "el_pos": pipeline.head.el_pos.cpu().numpy()}
     for key, own in layout.items():
         if not np.array_equal(np.asarray(consts[key]), own):
             raise ValueError(f"{key} {np.asarray(consts[key])} differs from the "
@@ -261,10 +217,10 @@ def load_reference_constants(pipeline: PointCloudPipeline,
 
     loaded = {buf: dft.to_matrix((f32(c), f32(s)))
               for buf, (c, s) in _FACTOR_KEYS.items()}
-    loaded["angle_bins"] = f32("angle_bins")
+    loaded["head.angle_bins"] = f32("angle_bins")
     with torch.no_grad():
         for buf, value in loaded.items():
-            target = getattr(pipeline, buf)
+            target = pipeline.get_buffer(buf)
             if value.shape != target.shape:
                 raise ValueError(f"{buf}: shape {tuple(value.shape)}, pipeline "
                                  f"has {tuple(target.shape)}")

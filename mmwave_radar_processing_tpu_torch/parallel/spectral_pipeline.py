@@ -34,6 +34,7 @@ from torch import nn
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import dft
 from mmwave_radar_processing_tpu_torch.parallel.pipeline import set_full_fp32
+from mmwave_radar_processing_tpu_torch.parallel.point_stages import check_planes
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.micro_doppler import spectrogram_stack
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat_channels
@@ -47,22 +48,6 @@ class SpectralMaps(NamedTuple):
 
 def _matrix(*args, **kwargs) -> torch.Tensor:
     return dft.to_matrix(dft.dft_factors(*args, **kwargs))
-
-
-def check_planes(raw_re: torch.Tensor, raw_im: torch.Tensor, *, frame_shape,
-                 min_planes: int, device: torch.device) -> None:
-    """Raise unless the planes are float32 ``[B, >=min_planes, *frame_shape]`` on ``device``."""
-    if raw_re.shape != raw_im.shape or raw_re.dim() != 4 \
-            or tuple(raw_re.shape[-2:]) != tuple(frame_shape) \
-            or raw_re.shape[1] < min_planes:
-        raise ValueError(f"expected planes [B, >={min_planes}, {frame_shape[0]}, "
-                         f"{frame_shape[1]}], got {tuple(raw_re.shape)} and "
-                         f"{tuple(raw_im.shape)}")
-    for plane in (raw_re, raw_im):
-        if plane.dtype != torch.float32:
-            raise TypeError(f"expected float32 planes, got {plane.dtype}")
-        if plane.device != device:
-            raise ValueError(f"input on {plane.device}, pipeline on {device}")
 
 
 class _SpectralPipeline(nn.Module):

@@ -53,6 +53,7 @@ from mmwave_radar_processing_tpu_torch.parallel.pipeline import (
     resolve_device,
     set_full_fp32,
 )
+from mmwave_radar_processing_tpu_torch.parallel.point_stages import check_planes
 from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
     ODS_AZ_SETS_VIRTUAL,
     ODS_EL_SETS_VIRTUAL,
@@ -316,21 +317,15 @@ class VelocityPipeline(nn.Module):
 
     # ----------------------------------------------------------------- forward
     def _check_inputs(self, raw_re, raw_im, altitude):
-        if raw_re.shape != raw_im.shape or raw_re.dim() != 4 \
-                or tuple(raw_re.shape[-2:]) != self.frame_shape \
-                or raw_re.shape[1] < self.num_rx:
-            raise ValueError(
-                f"expected raw planes [B, >={self.num_rx}, {self.frame_shape[0]}, "
-                f"{self.frame_shape[1]}], got {tuple(raw_re.shape)} and "
-                f"{tuple(raw_im.shape)}")
+        check_planes(raw_re, raw_im, frame_shape=self.frame_shape, min_planes=self.num_rx,
+                     device=self.fct.device)
         if tuple(altitude.shape) != (raw_re.shape[0],):
             raise ValueError(f"expected altitudes [{raw_re.shape[0]}], got "
                              f"{tuple(altitude.shape)}")
-        for t in (raw_re, raw_im, altitude):
-            if t.dtype != torch.float32:
-                raise TypeError(f"expected float32 inputs, got {t.dtype}")
-            if t.device != self.fct.device:
-                raise ValueError(f"input on {t.device}, pipeline on {self.fct.device}")
+        if altitude.dtype != torch.float32:
+            raise TypeError(f"expected float32 inputs, got {altitude.dtype}")
+        if altitude.device != self.fct.device:
+            raise ValueError(f"input on {altitude.device}, pipeline on {self.fct.device}")
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor,
                 altitude: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None):

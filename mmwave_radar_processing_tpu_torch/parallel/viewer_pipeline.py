@@ -8,7 +8,8 @@ becomes precompute-then-scrub (``visualization/precompute.py``):
 - :func:`build_viewer_payload_pipeline`: per frame the range-Doppler map,
   the range profile, a micro-Doppler column, the Doppler-azimuth and
   range-azimuth maps, the 1D, sequential and 2D CFAR detections and the
-  point cloud, all off one windowed range DFT of every virtual channel;
+  point cloud (the shared angle head, ``point_stages.AngleHead``, on every
+  virtual channel), all off one windowed range DFT of every virtual channel;
 - :func:`build_ground_detector_stage`: the altitude-gated velocity CFAR of
   the ground detector over maps and an altitude track computed before;
 - :func:`build_dbs_viewer_stage`: the plain range-azimuth map, the
@@ -31,16 +32,13 @@ from torch import nn
 
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import cfar as cfar_ops, dft, masked
+from mmwave_radar_processing_tpu_torch.parallel.point_stages import AngleHead, check_planes
 from mmwave_radar_processing_tpu_torch.parallel.spectral_pipeline import (
     _build,
     _matrix,
-    check_planes,
     nearest_doppler_bins,
 )
 from mmwave_radar_processing_tpu_torch.processors.detection import COS_60, _threshold_1d
-from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
-    spherical_to_cartesian_flu,
-)
 
 #: every output group of the payload pipeline (``rd_map`` and
 #: ``range_profile`` are always produced; ``points`` ride with ``det2d``)
@@ -156,18 +154,10 @@ class ViewerPayloadPipeline(nn.Module):
         self._seq_vel = _threshold_1d(*(seq_vel_cfar or (
             "os_cfar_1d", dict(num_train=5, num_guard=2, rho=0.7, alpha=3))))
 
-        az_idx = np.asarray(az_antenna_idxs, int)
-        el_idx = np.asarray(el_antenna_idxs, int)
-        self.has_az, self.has_el = bool(az_idx.size), bool(el_idx.size)
-        self.register_buffer("az_pos", torch.from_numpy(az_idx.astype(np.int64)))
-        self.register_buffer("el_pos", torch.from_numpy(el_idx.astype(np.int64)))
-        self.register_buffer("az_dft", dft.to_matrix(dft.aoa_factors(
-            len(az_idx) or 1, num_angle_bins, shift_az_resp)))
-        self.register_buffer("el_dft", dft.to_matrix(dft.aoa_factors(
-            len(el_idx) or 1, num_angle_bins, shift_el_resp)))
-        self.register_buffer("aoa_bins", torch.from_numpy(angle_bins.astype(np.float32)))
-        self.range_res = cfg.range_res_m
-        self.vel0, self.vel_res = -cfg.vel_max_m_s, cfg.vel_res_m_s
+        # the point cloud's angles index every virtual channel of R
+        self.head = AngleHead(cfg, az_pos=az_antenna_idxs, el_pos=el_antenna_idxs,
+                              num_angle_bins=num_angle_bins, shift_az_resp=shift_az_resp,
+                              shift_el_resp=shift_el_resp)
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor) -> Dict[str, torch.Tensor]:
         check_planes(raw_re, raw_im, frame_shape=self.frame_shape, min_planes=self.num_rx,
@@ -213,17 +203,7 @@ class ViewerPayloadPipeline(nn.Module):
 
         if "det2d" in include:
             r_i, v_i, valid, count = self._detect2d(rd_map)
-            az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
-            if self.has_az or self.has_el:
-                vals = dft.rd_values(R, self.dop, r_i, v_i)  # [B, A, K]
-            if self.has_az:
-                az = dft.aoa_peak_angles(vals, self.az_pos, self.az_dft, self.aoa_bins)
-            if self.has_el:
-                el = dft.aoa_peak_angles(vals, self.el_pos, self.el_dft, self.aoa_bins)
-            ranges = r_i.to(torch.float32) * self.range_res
-            vels = self.vel0 + v_i.to(torch.float32) * self.vel_res
-            pts = torch.where(valid[..., None],
-                              spherical_to_cartesian_flu(ranges, az, el, vels), 0.0)
+            pts = self.head(R, self.dop, r_i, v_i, valid)
             r_i, v_i = _int32(r_i, v_i)
             out.update(det_r=r_i, det_v=v_i, det_valid=valid, det_count=count,
                        points=pts, pt_valid=valid, pt_count=count)

@@ -106,17 +106,17 @@ def test_constants_carry_over_from_jax(flagship_config, frames):
     # the port's own builders give the JAX package's constants, bit for bit
     for buf, (c, s) in {"rng_dft": ("rng_cos", "rng_sin"),
                         "dop_dft": ("dop_cos", "dop_sin"),
-                        "az_dft": ("az_cos", "az_sin"),
-                        "el_dft": ("el_cos", "el_sin")}.items():
-        m = getattr(native, buf)
+                        "head.az_dft": ("az_cos", "az_sin"),
+                        "head.el_dft": ("el_cos", "el_sin")}.items():
+        m = native.get_buffer(buf)
         np.testing.assert_array_equal(m.real.numpy(), consts[c])
         np.testing.assert_array_equal(m.imag.numpy(), -consts[s])
-    np.testing.assert_array_equal(native.angle_bins.numpy(), consts["angle_bins"])
+    np.testing.assert_array_equal(native.head.angle_bins.numpy(), consts["angle_bins"])
 
     loaded = build_point_cloud_pipeline(flagship_config, device="cpu")
     with torch.no_grad():
-        for buf in ("rng_dft", "dop_dft", "az_dft", "el_dft", "angle_bins"):
-            getattr(loaded, buf).zero_()
+        for buf in ("rng_dft", "dop_dft", "head.az_dft", "head.el_dft", "head.angle_bins"):
+            loaded.get_buffer(buf).zero_()
     load_reference_constants(loaded, consts)
     raw = [torch.from_numpy(a[:2]) for a in frames]
     for g, w in zip(loaded(*raw), native(*raw)):
@@ -170,5 +170,5 @@ def test_pipeline_state_is_buffers(flagship_config):
     pipeline = build_point_cloud_pipeline(flagship_config, device="cpu")
     assert not list(pipeline.parameters())
     names = {n for n, _ in pipeline.named_buffers()}
-    assert {"rng_dft", "dop_dft", "az_dft", "el_dft", "angle_bins"} <= names
+    assert {"rng_dft", "dop_dft", "head.az_dft", "head.el_dft", "head.angle_bins"} <= names
     assert pipeline.rng_dft.dtype == torch.complex64
