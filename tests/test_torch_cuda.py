@@ -984,6 +984,7 @@ def test_synthetic_aperture_pipeline_on_cuda_meets_the_plain_reference(cuda):
     n = 64
     f = gen_flight.flight(radar, 0.1, n, 2 ** 31 + 22, cuda)
     pipe = build_pipeline(load_cfg(RADSAR_CFG, array_geometry="standard"), p, cuda)
+    assert pipe.range_dft_first  # 960 directions, 100 chirps a frame: the DFT goes first
     skernel.steering_phases.launches = 0
     with torch.no_grad():
         got = pipe(f.re, f.im, f.vels)

@@ -2,8 +2,11 @@
 
 RadSAR's IWR1843 configuration (``configs/RadSAR_1843_official.cfg``,
 standard geometry: 100 samples, chirp configuration 0 gives 100 chirps a
-frame) at a small aperture and grid, on frames of the benchmark's flight
-generator (``port_bench/gen/flight.py``) and on seeded random planes:
+frame) at a small aperture, on frames of the benchmark's flight generator
+(``port_bench/gen/flight.py``) and on seeded random planes, over two grids:
+12 x 3 = 36 directions, fewer than the 100 chirps, where the range DFT is
+taken of the beams after the element sum, and 12 x 9 = 108, more, where it
+is taken of each frame's chirps before it (``range_dft_first``):
 
 - a recording cut into batches of 1, 3 and 5 frames, the aperture carried
   from batch to batch, gives the outputs of one call over the whole
@@ -12,7 +15,10 @@ generator (``port_bench/gen/flight.py``) and on seeded random planes:
   the same response, and the port's plotter draws the same map;
 - the pipeline equals the benchmark's plain reference
   (``port_bench/reference/sar.py``), which builds each frame's aperture from
-  the whole recording.
+  the whole recording;
+- at 108 directions the DFT-first order equals the element sum followed by
+  the DFT of the beams, written out here;
+- the carried state holds the last ``F-1`` frames' raw chirps.
 
 Bars, each with its reason:
 
@@ -21,6 +27,9 @@ Bars, each with its reason:
 - batches against one call: depth bins exact and magnitudes within
   ``STREAM_ATOL`` = 1e-6 of the largest (each frame's products are the same
   float32 sums, whichever batch holds the frame; measured: equal);
+- the DFT-first order against the DFT of the beams: depth bins exact and
+  magnitudes within ``STREAM_ATOL`` of the largest (the same linear maps
+  rounded in another order; measured 4.5e-7);
 - against JAX: magnitudes within ``MAP_RTOL`` = 1e-4, atol 1e-4 of the
   largest, the bars of the other synthetic-aperture tests (the JAX scan
   forms the products as split real matrix products, in another order);
@@ -57,7 +66,13 @@ from mmwave_radar_processing_tpu_torch import (  # noqa: E402
 )
 from mmwave_radar_processing_tpu_torch.parallel import ApertureDepth, ApertureState  # noqa: E402
 from mmwave_radar_processing_tpu_torch.plotting import PlotterSyntheticArrayData  # noqa: E402
-from mmwave_radar_processing_tpu_torch.processors.synthetic_array import depth_map  # noqa: E402
+from mmwave_radar_processing_tpu_torch.ops import dft  # noqa: E402
+from mmwave_radar_processing_tpu_torch.processors.synthetic_array import (  # noqa: E402
+    chained_geometry,
+    depth_map,
+    steering_phases,
+    velocity_gate,
+)
 from port_bench.gen import flight as gen_flight  # noqa: E402
 from port_bench.reference import sar as ref_sar  # noqa: E402
 from port_bench.reference.radar import parse_cfg  # noqa: E402
@@ -75,6 +90,9 @@ PROCESSING = dict(receiver_idx=0, chirp_cfg_idx=0, stride=1, num_frames=4,
                   az_deg=[-30.0, 30.0, 12], el_deg=[-15.0, 15.0, 3],
                   min_vel=[0.17, 0.0, 0.0], max_vel=[0.25, 0.05, 0.05],
                   max_vel_stdev=[0.1, 0.1, 0.1], depth_floor_db=40.0)
+#: the same at 12 x 9 = 108 directions, more than a frame's 100 chirps
+WIDE = dict(PROCESSING, el_deg=[-15.0, 15.0, 9])
+GRIDS = pytest.mark.parametrize("processing", [PROCESSING, WIDE], ids=["grid36", "grid108"])
 
 
 def pipeline_kw(p=PROCESSING):
@@ -123,11 +141,13 @@ def _stream(pipe, re, im, vels, batch):
     return [torch.cat(parts) for parts in zip(*outs)]
 
 
+@GRIDS
 @pytest.mark.parametrize("batch", [1, 3, 5])
 @pytest.mark.parametrize("output", ["magnitude", "depth"])
-def test_batches_with_the_carried_aperture_equal_one_call(cfg, flight, batch, output):
+def test_batches_with_the_carried_aperture_equal_one_call(cfg, flight, batch, output, processing):
     re, im, vels = flight
-    pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", output=output, **pipeline_kw())
+    pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", output=output,
+                                             **pipeline_kw(processing))
     whole = pipe(re, im, vels)
     parts = _stream(pipe, re, im, vels, batch)
     assert torch.equal(parts[-1], whole[-1])  # the gate
@@ -139,10 +159,11 @@ def test_batches_with_the_carried_aperture_equal_one_call(cfg, flight, batch, ou
     torch.testing.assert_close(values, want, rtol=0, atol=STREAM_ATOL * float(want.max()))
 
 
+@GRIDS
 @pytest.mark.parametrize("recording", ["flight", "random_recording"])
-def test_streamed_batches_equal_the_jax_scan(cfg, recording, request):
+def test_streamed_batches_equal_the_jax_scan(cfg, recording, request, processing):
     re, im, vels = request.getfixturevalue(recording)
-    kw = pipeline_kw()
+    kw = pipeline_kw(processing)
     pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", **kw)
     mag, ok = _stream(pipe, re, im, vels, 3)
     want_mag, want_ok = build_jax(jax_load_cfg(str(CFG_PATH), array_geometry="standard"),
@@ -161,6 +182,59 @@ def test_a_state_of_another_shape_is_refused(cfg, flight):
         pipe(re, im, vels, ApertureState(state.adc[1:], state.vel))
     with pytest.raises(ValueError, match="output"):
         build_synthetic_aperture_pipeline(cfg, device="cpu", output="cube")
+
+
+@pytest.mark.parametrize("processing, first", [(PROCESSING, False), (WIDE, True)],
+                         ids=["grid36", "grid108"])
+def test_the_range_dft_goes_first_where_the_grid_outnumbers_the_chirps(cfg, processing, first):
+    pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", **pipeline_kw(processing))
+    assert len(pipe.valid_idx) == 100 and pipe.n_az * pipe.n_el in (36, 108)
+    assert pipe.range_dft_first is first
+    # the builder's own grid, 60 x 1 directions, keeps the DFT after the element sum
+    assert not build_synthetic_aperture_pipeline(cfg, device="cpu").range_dft_first
+
+
+def _product_then_dft(pipe, re, im, vels):
+    """Magnitudes ``[T, ns, A]`` and gate: the element sum of the raw chirps, then the DFT of the beams."""
+    t, f, rx = re.shape[0], pipe.num_frames, pipe.receiver_idx
+    head = pipe.init_state()
+    ring = torch.cat([head.adc, torch.complex(re[:, rx], im[:, rx])[:, :, pipe.valid_idx]])
+    data = ring.unfold(0, f, 1).permute(0, 1, 3, 2).reshape(t, pipe.ns, -1) * pipe.element_window
+    vel = torch.cat([head.vel, vels]).unfold(0, f, 1).transpose(1, 2)  # [T, F, 3]
+    ok = velocity_gate(vel, pipe.min_vel, pipe.max_vel, pipe.max_vel_stdev)
+    positions = chained_geometry(vel, pipe.chirp_times_s, pipe.frame_dt).transpose(1, 2)
+    phases = steering_phases(pipe.steering, positions.reshape(t, 3, -1), pipe.lambda_m)
+    beams = data @ phases.transpose(1, 2)  # [T, ns, A]
+    return dft.cabs(pipe.rng_dft.transpose(0, 1) @ beams), ok
+
+
+def test_the_dft_first_order_equals_the_dft_of_the_beams(cfg, flight):
+    re, im, vels = flight
+    kw = pipeline_kw(WIDE)
+    pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", **kw)
+    mag, ok = pipe(re, im, vels)
+    depth = build_synthetic_aperture_pipeline(cfg, device="cpu", output="depth", **kw)(
+        re, im, vels)
+    want, want_ok = _product_then_dft(pipe, re, im, vels)
+    assert torch.equal(ok, want_ok) and ok.sum() == N_FRAMES - 3
+    want = torch.where(ok[:, None, None], want, 0.0)
+    torch.testing.assert_close(mag.reshape(want.shape), want, rtol=0,
+                               atol=STREAM_ATOL * float(want.max()))
+    want_bin, _ = depth_map(want, WIDE["depth_floor_db"])
+    assert torch.equal(depth.depth_bin, torch.where(ok[:, None], want_bin, -1).to(torch.int32))
+
+
+@GRIDS
+def test_the_carried_state_holds_the_last_frames_raw_chirps(cfg, flight, processing):
+    re, im, vels = flight
+    pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", **pipeline_kw(processing))
+    _, state = pipe(re[:6], im[:6], vels[:6], pipe.init_state())
+    _, state = pipe(re[6:], im[6:], vels[6:], state)
+    keep = pipe.num_frames - 1
+    rx = processing["receiver_idx"]
+    raw = torch.complex(re[-keep:, rx], im[-keep:, rx])[:, :, pipe.valid_idx]
+    assert torch.equal(state.adc, raw)
+    assert torch.equal(state.vel, vels[-keep:])
 
 
 def _jax_depth(mag, processor, floor_db=40.0):
@@ -228,15 +302,16 @@ def test_the_ports_plotter_draws_the_jax_plotters_depth_map(cfg, flight):
     np.testing.assert_array_equal(got, _jax_depth(mag[t].numpy(), processor))
 
 
+@GRIDS
 @pytest.mark.parametrize("recording", ["flight", "random_recording"])
-def test_pipeline_equals_the_plain_reference(cfg, radar, recording, request):
+def test_pipeline_equals_the_plain_reference(cfg, radar, recording, request, processing):
     re, im, vels = request.getfixturevalue(recording)
     pipe = build_synthetic_aperture_pipeline(cfg, device="cpu", output="depth",
-                                             depth_floor_db=PROCESSING["depth_floor_db"],
-                                             **pipeline_kw())
+                                             depth_floor_db=processing["depth_floor_db"],
+                                             **pipeline_kw(processing))
     got = ApertureDepth(*_stream(pipe, re, im, vels, 4))
     frames = np.arange(N_FRAMES)
-    ref = ref_sar.depth_maps(re, im, vels, frames, radar, PROCESSING, 0.1, block=3)
+    ref = ref_sar.depth_maps(re, im, vels, frames, radar, processing, 0.1, block=3)
     assert got.ok.tolist() == ref.ok.tolist()
     assert got.ok.any() and not got.ok.all()
     assert torch.equal(got.depth_bin, ref.depth_bin)

@@ -5,7 +5,9 @@
 - Under ``torch.profiler``, one call of each pipeline (the synthetic
   aperture's streamed, with its depth head) opens each of its stage spans
   once, inside its pipeline's span, and every operator the pipeline runs
-  lies in one of its stages.
+  lies in one of its stages.  With more directions than chirps the
+  synthetic aperture opens ``mmw.sa.range_dft`` twice: the DFT of each
+  frame's chirps, then the magnitude after the product.
 - Outputs are bit-identical with the profiler on and off, and each
   ``stop_after`` return closes the spans it leaves.
 """
@@ -44,6 +46,8 @@ CALLS = {
                  "mmw.vel.precise": 1},
                 {"mmw.vel": VEL_STAGES + ("mmw.vel.precise",)}),
     "sa": ({"mmw.sa": 1, **dict.fromkeys(SA_STAGES, 1)}, {"mmw.sa": SA_STAGES}),
+    "sa_dft_first": ({"mmw.sa": 1, **dict.fromkeys(SA_STAGES, 1), "mmw.sa.range_dft": 2},
+                     {"mmw.sa": SA_STAGES}),
 }
 STOPS = {"responses": ("mmw.vel.window_dft", "mmw.vel.responses"),
          "vx": ("mmw.vel.window_dft", "mmw.vel.responses", "mmw.vel.vx"),
@@ -72,10 +76,13 @@ def _call(cfg, inputs, kind, **kw):
     if kind == "combined":
         pipe = build_full_pipeline(cfg, device="cpu")
         return lambda: pipe(re, im, alt)
-    if kind == "sa":  # the depth head, streamed from the zero state
+    if kind.startswith("sa"):  # the depth head, streamed from the zero state
+        # 70 chirps a frame: 8 directions keep the DFT after the element sum, 8 x 10 put it first
+        el = np.deg2rad(np.linspace(-15, 15, 10)) if kind == "sa_dft_first" else np.array([0.0])
         pipe = build_synthetic_aperture_pipeline(
             cfg, num_frames=2, az_angle_bins_rad=np.deg2rad(np.linspace(-30, 30, 8)),
-            output="depth", device="cpu")
+            el_angle_bins_rad=el, output="depth", device="cpu")
+        assert pipe.range_dft_first is (kind == "sa_dft_first")
         vels = torch.tensor([[0.2, 0.01, 0.0]] * FRAMES)
         return lambda: pipe(re, im, vels, pipe.init_state())
     pipe = build_velocity_pipeline(cfg, device="cpu", enable_precise=kind == "precise", **kw)
