@@ -13,7 +13,13 @@ out, at batch throughput:
 - :func:`build_strip_map_pipeline`: the full strip-map SAR magnitude;
 - :func:`build_dbs_pipeline`: DBS-sharpened range-angle maps for per-frame
   platform velocities, blended per frame with the plain range-angle map on
-  the speed gate (both are computed, as in the JAX package).
+  the speed gate (both are computed, as in the JAX package).  Its stages
+  are spans inside ``mmw.dbs`` (``utils/profiling.annotate``):
+  ``mmw.dbs.front`` (the planes check, the channels, the range and Doppler
+  DFTs), ``mmw.dbs.cube`` (the angle DFT of the whole cube),
+  ``mmw.dbs.pick`` (the Doppler bins, the gather, the magnitude) and
+  ``mmw.dbs.plain`` (the fallback map); the gate's select lies in
+  ``mmw.dbs`` itself.
 
 The transforms are DFT matrices built as the JAX package builds its factors
 (``ops.dft``), applied as complex matmuls; the virtual-array reformat is
@@ -38,6 +44,7 @@ from mmwave_radar_processing_tpu_torch.parallel.point_stages import check_planes
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.micro_doppler import spectrogram_stack
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat_channels
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
 
 
 class SpectralMaps(NamedTuple):
@@ -215,31 +222,35 @@ class DBSPipeline(_SpectralPipeline):
 
     def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor,
                 velocity_ned: torch.Tensor) -> torch.Tensor:
-        (sub,) = self._channels(raw_re, raw_im, self.rx_idx)
-        b = sub.shape[0]
-        if velocity_ned.shape != (b, 3) or velocity_ned.dtype != torch.float32 \
-                or velocity_ned.device != sub.device:
-            raise ValueError(f"expected float32 velocities [{b}, 3] on {sub.device}, "
-                             f"got {velocity_ned.dtype} {tuple(velocity_ned.shape)} "
-                             f"on {velocity_ned.device}")
+        with annotate("mmw.dbs"):
+            with annotate("mmw.dbs.front"):
+                (sub,) = self._channels(raw_re, raw_im, self.rx_idx)
+                b = sub.shape[0]
+                if velocity_ned.shape != (b, 3) or velocity_ned.dtype != torch.float32 \
+                        or velocity_ned.device != sub.device:
+                    raise ValueError(f"expected float32 velocities [{b}, 3] on {sub.device}, "
+                                     f"got {velocity_ned.dtype} {tuple(velocity_ned.shape)} "
+                                     f"on {velocity_ned.device}")
+                # DBS: the 3D windowed DFT [range, doppler, angle], then per DBS
+                # angle the value at its nearest coarse angle and expected Doppler bin
+                spec = self.rng.transpose(0, 1) @ sub @ self.dop  # [B, A, ns, loops]
+            with annotate("mmw.dbs.cube"):
+                spec = torch.movedim(spec, 1, -1) @ self.ang  # [B, ns, loops, M]
+            with annotate("mmw.dbs.pick"):
+                cell = self.doppler_bins(velocity_ned) * self.num_angle_bins + self.ang_near
+                picked = spec.reshape(b, self.ns, -1).gather(
+                    2, cell[:, None, :].expand(-1, self.ns, -1))
+                sharpened = dft.cabs(picked)  # [B, ns, n_dbs]
 
-        # DBS: the 3D windowed DFT [range, doppler, angle], then per DBS angle
-        # the value at its nearest coarse angle and expected Doppler bin
-        spec = self.rng.transpose(0, 1) @ sub @ self.dop  # [B, A, ns, loops]
-        spec = torch.movedim(spec, 1, -1) @ self.ang  # [B, ns, loops, M]
-        cell = self.doppler_bins(velocity_ned) * self.num_angle_bins + self.ang_near
-        picked = spec.reshape(b, self.ns, -1).gather(
-            2, cell[:, None, :].expand(-1, self.ns, -1))
-        sharpened = dft.cabs(picked)  # [B, ns, n_dbs]
+            with annotate("mmw.dbs.plain"):
+                # the plain range-angle map, resampled to the nearest angle
+                chirp = sub[..., self.chirp_idx] * self.ra_window[:, None]  # [B, A, ns]
+                ra = (chirp @ self.ra_rng).transpose(1, 2) @ self.ra_ant  # [B, ns, M]
+                plain = dft.cabs(ra)[:, :, self.ang_near]
 
-        # the plain range-angle map, resampled to the nearest angle
-        chirp = sub[..., self.chirp_idx] * self.ra_window[:, None]  # [B, A, ns]
-        ra = (chirp @ self.ra_rng).transpose(1, 2) @ self.ra_ant  # [B, ns, M]
-        plain = dft.cabs(ra)[:, :, self.ang_near]
-
-        v = velocity_ned
-        fast = torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) >= self.min_x_y_vel_dbs
-        return torch.where(fast[:, None, None], sharpened, plain)
+            v = velocity_ned
+            fast = torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) >= self.min_x_y_vel_dbs
+            return torch.where(fast[:, None, None], sharpened, plain)
 
 
 def _build(module: nn.Module, device) -> nn.Module:
