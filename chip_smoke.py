@@ -103,7 +103,10 @@ failure (exit code != 0):
    bit, behind a busy device; the synthetic-aperture steering-phase kernel
    at the RadSAR cell's [1024, 960, 800] (``time_steering_phases``: the
    pipeline's chained geometry of a seeded cruise, angles up to ~500 rad),
-   within ``STEERING_ATOL`` of its plain version;
+   within ``STEERING_ATOL`` of its plain version; the DBS pick kernel at
+   the RadVel DBS deployment's [1024, 4, 63, 70] with D = 100
+   (``time_dbs_pick``: the DBS pipeline's own spectrum and Doppler bins of
+   ``bench.py``'s planes), within ``DBS_PICK_REL`` of its plain version;
 14. ground kernel: the altitude recursion of the ground scan against its
    plain version (a loop of T steps over tensors) on the same CUDA tensors,
    equal bit for bit, at T in {1, 7, 1024, 5000}, precise and not, with a
@@ -135,7 +138,8 @@ failure (exit code != 0):
    within the bar where they agree; then the processors on 3 frames
    (range-angle, DBS slow and fast, strip map at 0.2 and 0.35 m/s with its
    crop slices identical) and micro-Doppler over the 32 frames (``process``
-   and ``scan``).  No hand-written kernel may launch on these paths;
+   and ``scan``).  No hand-written kernel may launch on these paths but
+   DBS's pick, once a DBS pipeline call;
 19. synthetic-aperture slice: 32 simulated frames, on a steady track and
    with a velocity step that the gate rejects, through
    ``build_synthetic_aperture_pipeline`` and the processor frame by frame
@@ -354,6 +358,12 @@ STEERING_ATOL = 1e-4
 #: float32 operations a phase: the dot product (a multiply and two FMAs) and
 #: the two scalings; sincosf not counted
 STEERING_OPS_PER_PHASE = 7
+#: the DBS pick: no Pallas kernel, plain XLA (the angle cube and a gather)
+DBS_PICK_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/dbs_pick.cu"
+DBS_PICK_REPLACES = "mmwave_radar_processing_tpu/parallel/spectral_pipeline.py:251"
+#: the DBS pick kernel vs its plain version: four products summed in another
+#: order round apart by a few ulp of the frame's largest value
+DBS_PICK_REL = 1e-6
 #: the ground scan's recursion: no Pallas kernel, XLA's lax.scan
 GROUND_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/altitude_track.cu"
 GROUND_REPLACES = "mmwave_radar_processing_tpu/parallel/ground_pipeline.py:248"
@@ -1912,9 +1922,19 @@ def dbs_velocities(n, seed=11):
     return torch.from_numpy(v.astype(np.float32))
 
 
+def only_dbs_pick_launched(phase, fn):
+    """Run ``fn`` with every launch count at 0 and raise unless the DBS pick kernel alone ran, once."""
+    out, counts = count_launches(fn)
+    launched = {name: n for name, n in counts.items() if n}
+    if launched != {"dbs_pick": 1}:
+        raise RuntimeError(f"{phase}: expected one launch of the DBS pick kernel, got {launched}")
+    return out
+
+
 def check_dbs(gpu_pipe, cpu_pipe, gpu_in, cpu_in, vel):
     """DBS on the GPU vs the CPU: Doppler bins equal on >= 99% of (frame, angle), maps where they agree."""
-    out = no_kernel_launched("dbs", lambda: gpu_pipe(*gpu_in, vel.to(gpu_in[0].device))).cpu()
+    out = only_dbs_pick_launched(
+        "dbs", lambda: gpu_pipe(*gpu_in, vel.to(gpu_in[0].device))).cpu()
     want = cpu_pipe(*cpu_in, vel)
     fast = torch.sqrt(vel[:, 0] ** 2 + vel[:, 1] ** 2) >= cpu_pipe.min_x_y_vel_dbs
     if bool(fast.all()) or not bool(fast.any()):
@@ -2261,6 +2281,65 @@ def time_steering_phases(device):
     return {**res, "max_abs_err": err}
 
 
+def time_dbs_pick(cfg, raw_re, raw_im):
+    """The DBS pick kernel and its plain version at the DBS deployment's [1024, 4, 63, 70], D = 100, in turns.
+
+    The spectrum and the Doppler bins are the DBS pipeline's own (its front
+    on ``bench.py``'s planes, ``dbs_velocities``).  Held within
+    ``DBS_PICK_REL`` of the plain version (the largest |difference| over the
+    largest value) before the turns, and timed behind a busy device.  No
+    single library call computes the pick; the cube and gather it replaced
+    is timed beside it as ``cube_and_gather_ms``.
+    """
+    from mmwave_radar_processing_tpu_torch import build_dbs_pipeline
+    from mmwave_radar_processing_tpu_torch.ops import dft
+    from mmwave_radar_processing_tpu_torch.ops.kernels.dbs_pick import dbs_pick as launched
+    from mmwave_radar_processing_tpu_torch.parallel.spectral_pipeline import _matrix
+
+    pipe = build_dbs_pipeline(cfg, device=raw_re.device)
+    (sub,) = pipe._channels(raw_re, raw_im, pipe.rx_idx)
+    spec = pipe.rng.transpose(0, 1) @ sub @ pipe.dop  # [1024, 4, 63, 70]
+    bins = pipe.doppler_bins(dbs_velocities(len(spec)).to(spec.device))
+    w = pipe.pick_weights
+    b, a, ns, loops = spec.shape
+    ang = _matrix(a, 64, shift=True, window=np.hanning(a)).to(spec.device)
+
+    def kernel():
+        return dft.dbs_pick(spec, w, bins)
+
+    def plain():
+        return dft.dbs_pick_reference(spec, w, bins)
+
+    def cube_and_gather():
+        cube = torch.movedim(spec, 1, -1) @ ang
+        cell = bins * ang.shape[1] + pipe.ang_near
+        return dft.cabs(cube.reshape(b, ns, -1).gather(2, cell[:, None, :].expand(-1, ns, -1)))
+
+    before = launched.launches
+    got = kernel()
+    if launched.launches != before + 1:
+        raise RuntimeError("dbs_pick did not launch its kernel")
+    want = plain()
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel_cube = float((got - cube_and_gather()).abs().max() / want.abs().max())
+    del got, want
+    if not max(rel, rel_cube) <= DBS_PICK_REL:
+        raise RuntimeError(f"DBS pick kernel differs from its plain version by {rel} "
+                           f"and from the cube and gather by {rel_cube} of the largest value")
+    kernel_ms, plain_ms, turns = take_turns(kernel, plain, 50, 20, queued=True)
+    cube_ms = cuda_ms(cube_and_gather, 20, queued=True)
+    d = w.shape[1]
+    # bytes: the spectrum and the bins once, the weights once, a float32 an output
+    n_bytes = 8 * spec.numel() + 8 * bins.numel() + 8 * w.numel() + 4 * b * ns * d
+    # operations an output: A complex multiply-adds (8 each) and the magnitude (4)
+    res = timing(kernel_ms, plain_ms, n_bytes, (8 * a + 4) * b * ns * d)
+    emit(phase="dbs_pick_timing", shape=[b, a, ns, loops], dbs_angles=d, turns=turns,
+         timed_behind_a_busy_device=True, launch_to_launch_ms=cuda_ms(kernel, 50),
+         cube_and_gather_ms=cube_ms, max_rel_err=rel, max_rel_err_cube_and_gather=rel_cube,
+         **res)
+    return {**res, "max_rel_err": rel}
+
+
 def measure_ground_stages(ground, raw_re, raw_im):
     """Where the ground path's time goes at T = 1024: each stage alone, and one call profiled.
 
@@ -2351,6 +2430,7 @@ def measure_spectral_stages(maps, dbs, raw_re, raw_im, vels):
     operations (``parallel/spectral_pipeline.py``); their sum is held
     against the path's time by the reader, not here.
     """
+    from mmwave_radar_processing_tpu_torch.ops import dft
     from mmwave_radar_processing_tpu_torch.ops.dft import cabs
 
     rd_in, ra_in, da_in = maps._channels(raw_re, raw_im, (maps.rx_idx,), maps.ra_idx,
@@ -2373,15 +2453,10 @@ def measure_spectral_stages(maps, dbs, raw_re, raw_im, vels):
     }
     (sub,) = dbs._channels(raw_re, raw_im, dbs.rx_idx)
     rd3 = dbs.rng.transpose(0, 1) @ sub @ dbs.dop
-    spec3 = torch.movedim(rd3, 1, -1) @ dbs.ang
-    ns = dbs.ns
     stages.update({
         "dbs_channels": lambda: dbs._channels(raw_re, raw_im, dbs.rx_idx),
         "dbs_range_doppler_dft": lambda: dbs.rng.transpose(0, 1) @ sub @ dbs.dop,
-        "dbs_move_and_angle_dft": lambda: torch.movedim(rd3, 1, -1) @ dbs.ang,
-        "dbs_bins_gather_magnitude": lambda: cabs(spec3.reshape(len(sub), ns, -1).gather(
-            2, (dbs.doppler_bins(vels) * dbs.num_angle_bins + dbs.ang_near)[:, None, :]
-            .expand(-1, ns, -1))),
+        "dbs_bins_and_pick": lambda: dft.dbs_pick(rd3, dbs.pick_weights, dbs.doppler_bins(vels)),
         "dbs_plain_range_angle": lambda: cabs(((sub[..., dbs.chirp_idx] * dbs.ra_window[:, None])
                                                @ dbs.ra_rng).transpose(1, 2) @ dbs.ra_ant),
     })
@@ -2391,7 +2466,7 @@ def measure_spectral_stages(maps, dbs, raw_re, raw_im, vels):
         ms[name] = cuda_ms(fn, 10)
     emit(phase="spectral_stages", batch=int(raw_re.shape[0]), stage_ms=ms,
          shapes={"da_chirp_dft_out": list(spec.shape), "da_angle_dft_out": list(ang.shape),
-                 "dbs_angle_dft_out": list(spec3.shape)})
+                 "dbs_range_doppler_out": list(rd3.shape)})
 
 
 def noise_kernel_own_ops(geo, n_train, cells, batch):
@@ -3026,7 +3101,8 @@ def check_viewer_slice(cfg, device, frames):
 
     Returns the kernels' launches by TPU kernel: ``detect`` (#1), ``noise``
     (#2), ``kth`` (#3), ``capon`` (#7), ``bartlett_cov`` (#8, the pipeline),
-    ``bartlett_snapshots`` (#9, the processor) and ``altitude``.
+    ``bartlett_snapshots`` (#9, the processor), ``altitude`` and
+    ``dbs_pick``.
     """
     from mmwave_radar_processing_tpu_torch.parallel import (
         build_dbs_viewer_stage, build_ground_detector_stage, build_viewer_payload_pipeline,
@@ -3069,8 +3145,9 @@ def check_viewer_slice(cfg, device, frames):
         kw = dict(num_angle_bins_dbs_enhanced_response=a_dbs, rx_antennas=rx)
         gpu_stage = build_dbs_viewer_stage(cfg, device=device, **kw)
         cpu_stage = build_dbs_viewer_stage(cfg, device="cpu", **kw)
-        ra, dbs, use = (x.cpu() for x in no_kernel_launched(
+        ra, dbs, use = (x.cpu() for x in only_dbs_pick_launched(
             "viewer DBS stage", lambda: gpu_stage(*gpu_in, vel.to(device))))
+        totals["dbs_pick"] = totals.get("dbs_pick", 0) + 1
         ra_w, dbs_w, use_w = cpu_stage(*cpu_in, vel)
         same = gpu_stage.doppler_bins(vel.to(device)).cpu() == cpu_stage.doppler_bins(vel)
         share = float(same.float().mean())
@@ -3086,7 +3163,8 @@ def check_viewer_slice(cfg, device, frames):
 
     # the controller on the card: the precompute against the per-frame path
     by_kernel = {"detect": 0, "noise": 0, "kth": totals.get("kth_smallest", 0), "capon": 0,
-                 "bartlett_cov": 0, "bartlett_snapshots": 0, "altitude": 0}
+                 "bartlett_cov": 0, "bartlett_snapshots": 0, "altitude": 0,
+                 "dbs_pick": totals["dbs_pick"]}
     by_kernel["detect"] = totals.get("os_cfar_2d_detect", 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_") as root:
         write_viewer_recording(cfg, root)
@@ -3114,6 +3192,7 @@ def check_viewer_slice(cfg, device, frames):
             by_kernel["bartlett_cov"] += cached["bartlett_power"]
             by_kernel["bartlett_snapshots"] += per_frame["bartlett_power"]
             by_kernel["altitude"] += cached["altitude_track"] + per_frame["altitude_track"]
+            by_kernel["dbs_pick"] += cached["dbs_pick"] + per_frame["dbs_pick"]
     emit(phase="viewer_slice", launches=by_kernel)
     return by_kernel
 
@@ -3460,7 +3539,8 @@ def check_drawing_slice(cfg, device):
             "bartlett_cov": pre["bartlett_power"],
             "bartlett_snapshots": per_frame.get("bartlett_power", 0),
             "altitude": per_frame.get("altitude_track", 0) + pre["altitude_track"],
-            "steering": per_frame.get("steering_phases", 0) + pre["steering_phases"]}
+            "steering": per_frame.get("steering_phases", 0) + pre["steering_phases"],
+            "dbs_pick": per_frame.get("dbs_pick", 0) + pre["dbs_pick"]}
 
 
 def check_angle_accuracy(device):
@@ -3743,7 +3823,7 @@ def build_kernels():
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
     names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select",
-             "altitude_track", "prominent_peak", "steering_phases")
+             "altitude_track", "prominent_peak", "steering_phases", "dbs_pick")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -3783,6 +3863,7 @@ def kernel_times():
     time_beamform(build_capon_pipeline(cfg, antenna_idxs=AZ_IDXS, method="capon",
                                        loading=LOADING, device=device), raw_re, raw_im)
     time_prominent_peak(cfg, raw_re, raw_im, alts)
+    time_dbs_pick(cfg, raw_re, raw_im)
     del raw_re, raw_im, alts
     time_steering_phases(device)
     time_responses(build_velocity_pipeline(cfg, device=device), device)
@@ -3874,6 +3955,7 @@ def main():
     track_ms = time_altitude_track(ground, raw_re, raw_im)
     peak_ms = time_prominent_peak(cfg, raw_re, raw_im, alts)
     steering_ms = time_steering_phases(device)
+    dbs_pick_ms = time_dbs_pick(cfg, raw_re, raw_im)
     measure_ground_stages(ground, raw_re, raw_im)
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
@@ -3982,6 +4064,12 @@ def main():
          "replaces": STEERING_REPLACES,
          "launches": sa_launches + drawing_launches["steering"]
          + multidevice_launches.get("steering_phases", 0), **steering_ms},
+        # no TPU kernel's counterpart: the JAX package's DBS angle cube and
+        # gather are plain XLA; one launch a DBS pipeline or viewer-stage call
+        {"name": "dbs_pick", "route": "cuda", "source": DBS_PICK_SOURCE,
+         "replaces": DBS_PICK_REPLACES,
+         "launches": 1 + viewer_launches["dbs_pick"] + drawing_launches["dbs_pick"],
+         **dbs_pick_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Helpers shared by the OS-CFAR sources (os_rank_select.cu, os_cfar_detect.cu):
+// Helpers shared by the OS-CFAR sources (os_rank_select.cu, os_cfar_detect.cu) and
+// dbs_pick.cu:
 // a run length handed to a loop body as a compile-time constant, and the grant
 // of more than 48 KB of dynamic shared memory to a kernel.
 

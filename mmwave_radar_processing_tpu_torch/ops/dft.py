@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mmwave_radar_processing_tpu_torch.ops.kernels import dbs_pick as dbs_kernel
 from mmwave_radar_processing_tpu_torch.ops.windows import hanning
 
 Factors = Tuple[torch.Tensor, torch.Tensor]
@@ -129,6 +130,36 @@ def cabs(z: torch.Tensor) -> torch.Tensor:
     """
     re, im = z.real, z.imag
     return torch.sqrt(re * re + im * im)
+
+
+def dbs_pick_reference(spec: torch.Tensor, weights: torch.Tensor,
+                       bins: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`dbs_pick`: a gather of the ``A`` values at the bins, their weighted sum, :func:`cabs`.
+
+    Forms ``[B, A, ns, D]``, the kept points' antenna values, and no cube.
+    """
+    b, a, ns, _ = spec.shape
+    picked = torch.gather(spec, 3, bins[:, None, None, :].expand(b, a, ns, -1))
+    return cabs((picked * weights[:, None, :]).sum(dim=1))
+
+
+def dbs_pick(spec: torch.Tensor, weights: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """DBS's velocity-steered pick: ``[B, A, ns, L]``, ``[A, D]``, ``int64 [B, D]`` -> float32 ``[B, ns, D]``.
+
+    ``out[b, r, d] = cabs(sum_a spec[b, a, r, bins[b, d]] * weights[a, d])``:
+    with ``spec`` the range-Doppler spectrum of ``A`` antennas and
+    ``weights`` the angle DFT's column of each output angle, the magnitude
+    of the range-Doppler-angle cube at (range bin, the frame's Doppler bin,
+    that angle), formed without the cube.  Dispatches on the device of
+    ``spec``: a CPU tensor takes the plain version
+    :func:`dbs_pick_reference`, any other the hand-written CUDA kernel
+    (:mod:`.kernels.dbs_pick`), which writes only the kept magnitudes, or
+    raises: it takes complex64 CUDA tensors alone (views are made
+    contiguous first).  There is no fallback from one to the other.
+    """
+    if spec.device.type == "cpu":
+        return dbs_pick_reference(spec, weights, bins)
+    return dbs_kernel.dbs_pick(spec.contiguous(), weights.contiguous(), bins.contiguous())
 
 
 def range_dft_channels(

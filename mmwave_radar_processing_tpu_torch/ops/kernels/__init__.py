@@ -6,7 +6,7 @@ import torch
 def wrappers():
     """Every hand-written kernel's wrapper by name; each counts its launches in ``.launches``."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import (
-        altitude_track, beamform, doppler_az, os_cfar, peaks, rank_select, steering,
+        altitude_track, beamform, dbs_pick, doppler_az, os_cfar, peaks, rank_select, steering,
     )
 
     return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect,
@@ -16,7 +16,8 @@ def wrappers():
             "capon_power": beamform.capon_power, "bartlett_power": beamform.bartlett_power,
             "altitude_track": altitude_track.altitude_track,
             "prominent_peak": peaks.prominent_peak,
-            "steering_phases": steering.steering_phases}
+            "steering_phases": steering.steering_phases,
+            "dbs_pick": dbs_pick.dbs_pick}
 
 
 def count_launches(fn):

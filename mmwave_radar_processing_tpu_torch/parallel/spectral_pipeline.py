@@ -16,17 +16,19 @@ out, at batch throughput:
   the speed gate (both are computed, as in the JAX package).  Its stages
   are spans inside ``mmw.dbs`` (``utils/profiling.annotate``):
   ``mmw.dbs.front`` (the planes check, the channels, the range and Doppler
-  DFTs), ``mmw.dbs.cube`` (the angle DFT of the whole cube),
-  ``mmw.dbs.pick`` (the Doppler bins, the gather, the magnitude) and
-  ``mmw.dbs.plain`` (the fallback map); the gate's select lies in
+  DFTs), ``mmw.dbs.pick`` (the Doppler bins, then the angle DFT's point at
+  each kept (Doppler bin, angle) and its magnitude, ``ops.dft.dbs_pick``:
+  the hand-written CUDA kernel on the card; the angle cube is never formed)
+  and ``mmw.dbs.plain`` (the fallback map); the gate's select lies in
   ``mmw.dbs`` itself.
 
 The transforms are DFT matrices built as the JAX package builds its factors
 (``ops.dft``), applied as complex matmuls; the virtual-array reformat is
 folded into the channel selection (``reformat_channels``) unless
 ``reformat_input=False``, which takes virtual cubes ``[B, n_virtual, ns,
-loops]``.  No step of these paths has a hand-written kernel: the JAX package
-computes them in plain XLA.  Precision is full float32 with TF32 off.
+loops]``.  No step of these paths has a TPU kernel: the JAX package computes
+them in plain XLA.  One has a hand-written CUDA kernel, DBS's pick.
+Precision is full float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -195,10 +197,9 @@ class DBSPipeline(_SpectralPipeline):
         ns, loops, a = self.ns, self.loops, len(self.rx_idx)
         angle_bins = grids.angle_bins(num_angle_bins)
         dbs_bins = np.linspace(angle_bins[0], angle_bins[-1], num_dbs_angle_bins)
-        self.num_angle_bins = num_angle_bins
         # the nearest coarse angle of each DBS angle (fixed)
-        self.register_buffer("ang_near", torch.from_numpy(np.argmin(
-            np.abs(angle_bins[None, :] - dbs_bins[:, None]), axis=1)))
+        ang_near = np.argmin(np.abs(angle_bins[None, :] - dbs_bins[:, None]), axis=1)
+        self.register_buffer("ang_near", torch.from_numpy(ang_near))
         self.register_buffer("vel_bins", torch.from_numpy(
             grids.vel_bins(cfg).astype(np.float32)))
         self.register_buffer("dbs_dirs", torch.from_numpy(np.stack(
@@ -206,8 +207,9 @@ class DBSPipeline(_SpectralPipeline):
 
         self.register_buffer("rng", _matrix(ns, window=np.hanning(ns)))
         self.register_buffer("dop", _matrix(loops, window=np.hanning(loops), shift=True))
-        self.register_buffer("ang", _matrix(a, num_angle_bins, shift=True,
-                                            window=np.hanning(a)))
+        # the windowed angle DFT's column of each DBS angle's coarse angle
+        self.register_buffer("pick_weights", _matrix(
+            a, num_angle_bins, shift=True, window=np.hanning(a))[:, ang_near].contiguous())
         # the plain range-angle path windows the FULL antenna axis before
         # the selection
         n_virtual = self.num_rx * self.cpl
@@ -231,16 +233,12 @@ class DBSPipeline(_SpectralPipeline):
                     raise ValueError(f"expected float32 velocities [{b}, 3] on {sub.device}, "
                                      f"got {velocity_ned.dtype} {tuple(velocity_ned.shape)} "
                                      f"on {velocity_ned.device}")
-                # DBS: the 3D windowed DFT [range, doppler, angle], then per DBS
-                # angle the value at its nearest coarse angle and expected Doppler bin
+                # DBS: the windowed range and Doppler DFTs, then per DBS angle the
+                # angle DFT's point at its nearest coarse angle and expected Doppler bin
                 spec = self.rng.transpose(0, 1) @ sub @ self.dop  # [B, A, ns, loops]
-            with annotate("mmw.dbs.cube"):
-                spec = torch.movedim(spec, 1, -1) @ self.ang  # [B, ns, loops, M]
             with annotate("mmw.dbs.pick"):
-                cell = self.doppler_bins(velocity_ned) * self.num_angle_bins + self.ang_near
-                picked = spec.reshape(b, self.ns, -1).gather(
-                    2, cell[:, None, :].expand(-1, self.ns, -1))
-                sharpened = dft.cabs(picked)  # [B, ns, n_dbs]
+                sharpened = dft.dbs_pick(spec, self.pick_weights,
+                                         self.doppler_bins(velocity_ned))  # [B, ns, n_dbs]
 
             with annotate("mmw.dbs.plain"):
                 # the plain range-angle map, resampled to the nearest angle

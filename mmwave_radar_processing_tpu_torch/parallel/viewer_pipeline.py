@@ -19,7 +19,8 @@ Per-frame semantics are the registry processors' (same windows, shifts and
 bin subsets).  The transforms are complex64 DFT matrices (``ops.dft``); the
 ordered-statistic CFARs reach the hand-written kernels on a GPU through
 ``ops.cfar`` (``os_2d_detect_compact``: the detection kernel; ``os_1d``: the
-k-th-smallest kernel).  Precision is full float32 with TF32 off.
+k-th-smallest kernel); the DBS stage's pick reaches its kernel through
+``ops.dft.dbs_pick``.  Precision is full float32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -302,15 +303,13 @@ class DBSViewerStage(nn.Module):
         chirp0 = R[..., 0] * self.ra_w[:, None]  # [B, A, ns]
         ra_map = dft.cabs(chirp0.transpose(1, 2) @ self.ra_ang)  # [B, ns, A_ra]
 
-        # DBS: Doppler DFT, the angle DFT at the chosen columns, and per output
-        # angle the magnitude at its expected Doppler bin (a gather)
-        spec = torch.movedim(R @ self.dop, 1, -1) @ self.dbs_ang  # [B, ns, loops, A_dbs]
-        vel_idx = self.doppler_bins(velocity_ned)  # [B, A_dbs]
-        picked = torch.gather(spec, 2, vel_idx[:, None, None, :].expand(
-            -1, spec.shape[1], 1, -1))[:, :, 0]  # [B, ns, A_dbs]
+        # DBS: Doppler DFT, then per output angle the angle DFT's point at its
+        # chosen column and expected Doppler bin, and its magnitude
+        dbs_map = dft.dbs_pick(R @ self.dop, self.dbs_ang,
+                               self.doppler_bins(velocity_ned))  # [B, ns, A_dbs]
         v = velocity_ned
         use_dbs = torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) >= self.min_x_y_vel_dbs
-        return ra_map, dft.cabs(picked), use_dbs
+        return ra_map, dbs_map, use_dbs
 
 
 def build_viewer_payload_pipeline(

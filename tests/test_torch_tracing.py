@@ -6,7 +6,7 @@
   aperture's streamed, with its depth head) opens each of its stage spans
   once, inside its pipeline's span, and every operator the pipeline runs
   lies in one of its stages, but for the DBS gate's select, which follows
-  its four stages inside ``mmw.dbs``.  With more directions than chirps the
+  its three stages inside ``mmw.dbs``.  With more directions than chirps the
   synthetic aperture opens ``mmw.sa.range_dft`` twice: the DFT of each
   frame's chirps, then the magnitude after the product.
 - Outputs are bit-identical with the profiler on and off, and each
@@ -36,7 +36,7 @@ FRAMES = 3
 PC_STAGES = ("mmw.pc.spectral", "mmw.pc.cfar", "mmw.pc.aoa")
 VEL_STAGES = ("mmw.vel.window_dft", "mmw.vel.responses", "mmw.vel.vx", "mmw.vel.peaks",
               "mmw.vel.ransac")
-DBS_STAGES = ("mmw.dbs.front", "mmw.dbs.cube", "mmw.dbs.pick", "mmw.dbs.plain")
+DBS_STAGES = ("mmw.dbs.front", "mmw.dbs.pick", "mmw.dbs.plain")
 SA_STAGES = ("mmw.sa.window", "mmw.sa.gate", "mmw.sa.phases", "mmw.sa.product",
              "mmw.sa.range_dft", "mmw.sa.depth")
 #: per call: how often each span opens, and the pipeline span each stage lies in
