@@ -65,6 +65,8 @@ takes an explicit ``device``; the playback controller's defaults to CUDA.
 - ``parallel``      — ``build_point_cloud_pipeline``, ``build_velocity_pipeline``,
                       ``build_full_pipeline``, ``build_capon_pipeline``,
                       ``build_ground_point_cloud_pipeline``,
+                      ``build_velocity_analysis_pipeline`` (the ground scan
+                      and the points' ego velocity over a recording),
                       ``build_spectral_maps_pipeline``,
                       ``build_micro_doppler_pipeline``,
                       ``build_strip_map_pipeline``, ``build_dbs_pipeline`` and
@@ -95,6 +97,11 @@ from mmwave_radar_processing_tpu_torch.parallel.ground_pipeline import (
     GroundPipeline,
     GroundPipelineOut,
     build_ground_point_cloud_pipeline,
+)
+from mmwave_radar_processing_tpu_torch.parallel.velocity_analysis_pipeline import (
+    VelocityAnalysisOut,
+    VelocityAnalysisPipeline,
+    build_velocity_analysis_pipeline,
 )
 from mmwave_radar_processing_tpu_torch.parallel.full_pipeline import (
     FullPipeline,
@@ -172,6 +179,9 @@ __all__ = [
     "GroundPipeline",
     "GroundPipelineOut",
     "build_ground_point_cloud_pipeline",
+    "VelocityAnalysisOut",
+    "VelocityAnalysisPipeline",
+    "build_velocity_analysis_pipeline",
     "CaponPipeline",
     "build_capon_pipeline",
     "load_capon_constants",

@@ -53,15 +53,15 @@ def dft_factors(
 
 def zoom_dft_factors(
     f1: torch.Tensor, f2: torch.Tensor, *, n: int, m: int, fs: float,
-    window: Optional[np.ndarray] = None,
+    window: Optional[torch.Tensor] = None,
 ) -> Factors:
     """Zoom DTFT factors with per-frame band edges (JAX: ``mxu.zoom_dft_factors_dynamic``).
 
     Frequencies ``f_k = f1 + k*(f2-f1)/m`` (scipy ``ZoomFFT``, endpoint
     excluded), angles ``2*pi*j*f_k/fs``.  ``f1``, ``f2``: float32 ``[...]``;
     returns float32 ``(C, S)`` of shape ``[..., n, m]``, built in float32 in
-    the JAX package's order of operations.  ``window`` folds a window over
-    the ``n`` inputs into the matrix.
+    the JAX package's order of operations.  ``window``, a float32 tensor
+    on ``f1``'s device, folds a window over the ``n`` inputs into the matrix.
     """
     jv = torch.arange(n, dtype=torch.float32, device=f1.device)[:, None]
     kv = torch.arange(m, dtype=torch.float32, device=f1.device)[None, :]
@@ -70,7 +70,7 @@ def zoom_dft_factors(
     ang = 2 * np.pi * jv * freqs / fs
     c, s = torch.cos(ang), torch.sin(ang)
     if window is not None:
-        w = torch.as_tensor(np.asarray(window, np.float32), device=f1.device)[:, None]
+        w = window[:, None]
         c, s = c * w, s * w
     return c, s
 

@@ -61,7 +61,8 @@ def _masked_lstsq(h: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Te
     if d == 1:
         return b / (a[..., 0, :] + ridge[..., None])
     eye = torch.eye(d, dtype=a.dtype, device=a.device)
-    return torch.linalg.solve(a + ridge[..., None, None] * eye, b)
+    # solve_ex: the ridge keeps the system regular, so no error check (a host sync) is needed
+    return torch.linalg.solve_ex(a + ridge[..., None, None] * eye, b)[0]
 
 
 def _masked_r2(y: torch.Tensor, pred: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -110,7 +111,10 @@ def ransac_linear(
     if tuple(scores.shape) != (*lead, max_trials, n):
         raise ValueError(f"scores of shape {tuple(scores.shape)}, expected "
                          f"{(*lead, max_trials, n)}")
-    thr = torch.as_tensor(residual_threshold, dtype=torch.float32, device=h.device)
+    if isinstance(residual_threshold, torch.Tensor):
+        thr = residual_threshold.to(device=h.device, dtype=torch.float32)
+    else:  # filled in on the device: no copy from the host
+        thr = torch.full((), float(residual_threshold), dtype=torch.float32, device=h.device)
 
     # the trials ride a new axis before the rows
     h_t, y_t, valid_t = h[..., None, :, :], y[..., None, :], valid[..., None, :]

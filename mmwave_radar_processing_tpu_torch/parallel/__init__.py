@@ -6,6 +6,9 @@
   conversion of the planes and its own range DFT.
 - ``capon_pipeline``    — Capon / Bartlett range-azimuth heatmaps.
 - ``ground_pipeline``   — the altimeter-gated ground scan over a recording.
+- ``velocity_analysis_pipeline`` — the ground scan, then the points' ego
+  velocity with its gates and carried estimate (upstream's
+  ``test_vel_estimation.py``).
 - ``spectral_pipeline`` — range-Doppler, range-angle and Doppler-azimuth
   maps, micro-Doppler spectrograms, strip-map SAR and DBS maps.
 - ``beamform_pipeline`` — synthetic-aperture beamforming over a recording.
@@ -50,6 +53,10 @@ from mmwave_radar_processing_tpu_torch.parallel.ground_pipeline import (
     GroundPipelineOut,
     build_ground_point_cloud_pipeline,
 )
+from mmwave_radar_processing_tpu_torch.parallel.velocity_analysis_pipeline import (
+    VelocityAnalysisOut,
+    build_velocity_analysis_pipeline,
+)
 from mmwave_radar_processing_tpu_torch.parallel.beamform_pipeline import (
     ApertureDepth,
     ApertureState,
@@ -86,6 +93,8 @@ __all__ = [
     "build_capon_pipeline",
     "GroundPipelineOut",
     "build_ground_point_cloud_pipeline",
+    "VelocityAnalysisOut",
+    "build_velocity_analysis_pipeline",
     "ApertureDepth",
     "ApertureState",
     "SyntheticAperturePipeline",

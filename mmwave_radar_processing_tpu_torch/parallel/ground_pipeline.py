@@ -21,6 +21,14 @@ frame; everything else is batched over the recording:
    OS-CFAR by counting, compaction of the first ``max_dets`` detections, and
    the shared angle head (``point_stages.AngleHead``) for the FLU points.
 
+A call is the span ``mmw.gnd`` (``utils/profiling.annotate``) around its
+stages: ``mmw.gnd.range`` (the planes check, the loop-0 chirps, the coarse
+range DFT and the candidates' peaks), ``mmw.gnd.zoom`` (the factor build,
+the zoom DTFT and its peaks; precise only), ``mmw.gnd.track`` (the
+recursion), ``mmw.gnd.detect`` (the range-Doppler front, the row gate, the
+1D OS-CFAR and the compaction) and ``mmw.gnd.aoa`` (the angle head).  A
+call reads nothing back to the host.
+
 Precision is full float32 with TF32 off; the pipeline has no weights and uses
 no randomness.
 """
@@ -47,6 +55,7 @@ from mmwave_radar_processing_tpu_torch.parallel.point_stages import (
 )
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.detection import COS_60
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
 
 DEFAULT_VEL_CFAR_PARAMS = dict(num_train=12, num_guard=4, rho=0.5, alpha=15.0)
 STOP_AFTER = (None, "altitude")
@@ -120,7 +129,6 @@ class GroundPipeline(nn.Module):
         # altimeter zoom frequency mapping (reference range_resp.py:84-89)
         self.zoom_fs = 1.0 / cfg.range_res_m
         self.zoom_scale = self.zoom_fs / cfg.range_max_m
-        self.zoom_window = np.hanning(ns)
 
         rng_factors, dop_factors = dft.range_doppler_factors(ns, loops)
         # the altimeter's range DFT is the same Hann-windowed matrix
@@ -130,6 +138,7 @@ class GroundPipeline(nn.Module):
         self.register_buffer("eps_bins", torch.from_numpy(
             grids.range_bins(cfg, variant="eps").astype(np.float32)))
         self.register_buffer("chans", torch.from_numpy(layout.chans.astype(np.int64)))
+        self.register_buffer("zoom_window", torch.from_numpy(np.hanning(ns).astype(np.float32)))
         self.head = AngleHead(cfg, az_pos=layout.az_pos, el_pos=layout.el_pos,
                               num_angle_bins=num_angle_bins, shift_az_resp=shift_az_resp,
                               shift_el_resp=shift_el_resp)
@@ -177,17 +186,21 @@ class GroundPipeline(nn.Module):
 
     def altitude_inputs(self, raw_re: torch.Tensor, raw_im: torch.Tensor):
         """The recursion's inputs ``(cand, valid, zbins, zvalid)`` of a recording (refinements None unless precise)."""
-        check_planes(raw_re, raw_im, frame_shape=self.frame_shape,
-                     min_planes=self.min_planes, device=self.rng_dft.device)
-        return self._altitude_inputs(torch.complex(raw_re, raw_im))
+        return self._altitude_inputs(raw_re, raw_im)[1:]
 
-    def _altitude_inputs(self, raw: torch.Tensor):
-        chirp0 = self.loop0_chirps(raw)
-        cand, valid = self.peak_candidates(chirp0)
+    def _altitude_inputs(self, raw_re: torch.Tensor, raw_im: torch.Tensor):
+        """``(raw, cand, valid, zbins, zvalid)``: the complex planes and the recursion's inputs, in their spans."""
+        with annotate("mmw.gnd.range"):
+            check_planes(raw_re, raw_im, frame_shape=self.frame_shape,
+                         min_planes=self.min_planes, device=self.rng_dft.device)
+            raw = torch.complex(raw_re, raw_im)
+            chirp0 = self.loop0_chirps(raw)
+            cand, valid = self.peak_candidates(chirp0)
         zbins = zvalid = None
         if self.precise:
-            zbins, zvalid = self.refine_candidates(chirp0, cand)
-        return cand, valid, zbins, zvalid
+            with annotate("mmw.gnd.zoom"):
+                zbins, zvalid = self.refine_candidates(chirp0, cand)
+        return raw, cand, valid, zbins, zvalid
 
     def track(self, cand, valid, zbins, zvalid, init: torch.Tensor):
         """The recursion: ``(alts [T], final [])`` (the kernel on a GPU)."""
@@ -196,39 +209,54 @@ class GroundPipeline(nn.Module):
             altitude_search_limit_m=self.altitude_search_limit_m,
             range_bias=self.range_bias, precise=self.precise)
 
+    def start(self, init_altitude=None) -> torch.Tensor:
+        """The tracker's start as a float32 scalar on the device: ``min_altitude_m``, a float or a scalar tensor.
+
+        A float is filled in on the device and a tensor converted there, so
+        neither copies from the host's memory.
+        """
+        device = self.rng_dft.device
+        if init_altitude is None or not isinstance(init_altitude, torch.Tensor):
+            start = self.min_altitude_m if init_altitude is None else float(init_altitude)
+            return torch.full((), start, dtype=torch.float32, device=device)
+        return init_altitude.to(device=device, dtype=torch.float32).reshape(())
+
     def detect_frames(self, raw: torch.Tensor, corrected: torch.Tensor):
         """Stateless detection of every frame at its altitude: ``(points, valid, count)``."""
-        R = dft.range_dft_input(raw, self.chans, self.rng_dft,
-                                reformat_input=self.reformat_input, num_rx=self.num_rx,
-                                cfgs_per_loop=self.cpl)
-        mag = dft.cabs(torch.matmul(R[:, self.ch0_pos], self.dop_dft))  # [T, W, V]
+        with annotate("mmw.gnd.detect"):
+            R = dft.range_dft_input(raw, self.chans, self.rng_dft,
+                                    reformat_input=self.reformat_input, num_rx=self.num_rx,
+                                    cfgs_per_loop=self.cpl)
+            mag = dft.cabs(torch.matmul(R[:, self.ch0_pos], self.dop_dft))  # [T, W, V]
 
-        # altitude row gate: nearest bins, inclusive (reference :89-103)
-        bins = self.eps_bins
-        min_idx = torch.argmin(torch.abs(bins - corrected[:, None]), dim=-1)
-        max_rng = torch.minimum(bins.max(), corrected / COS_60)
-        max_idx = torch.argmin(torch.abs(bins - max_rng[:, None]), dim=-1)
-        rows = torch.arange(bins.shape[0], device=bins.device)
-        row_gate = (rows >= min_idx[:, None]) & (rows <= max_idx[:, None])
+            # altitude row gate: nearest bins, inclusive (reference :89-103)
+            bins = self.eps_bins
+            min_idx = torch.argmin(torch.abs(bins - corrected[:, None]), dim=-1)
+            max_rng = torch.minimum(bins.max(), corrected / COS_60)
+            max_idx = torch.argmin(torch.abs(bins - max_rng[:, None]), dim=-1)
+            rows = torch.arange(bins.shape[0], device=bins.device)
+            row_gate = (rows >= min_idx[:, None]) & (rows <= max_idx[:, None])
 
-        det_mask = row_gate[:, :, None] & os_1d_detect(mag, **self.cfar)
-        r_i, v_i, valid, count = mask_to_indices_2d(det_mask, self.max_dets,
-                                                    interior=self.interior)
-        pts = self.head(R[:, self.aoa_start:], self.dop_dft, r_i, v_i, valid)
+            det_mask = row_gate[:, :, None] & os_1d_detect(mag, **self.cfar)
+            r_i, v_i, valid, count = mask_to_indices_2d(det_mask, self.max_dets,
+                                                        interior=self.interior)
+        with annotate("mmw.gnd.aoa"):
+            pts = self.head(R[:, self.aoa_start:], self.dop_dft, r_i, v_i, valid)
         return pts, valid, count
 
-    def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor, init_altitude=None):
-        start = self.min_altitude_m if init_altitude is None else init_altitude
-        init = torch.as_tensor(start, dtype=torch.float32,
-                               device=self.rng_dft.device).reshape(())
-        check_planes(raw_re, raw_im, frame_shape=self.frame_shape,
-                     min_planes=self.min_planes, device=self.rng_dft.device)
-        raw = torch.complex(raw_re, raw_im)
-        alts, final = self.track(*self._altitude_inputs(raw), init)
+    def scan(self, raw_re: torch.Tensor, raw_im: torch.Tensor, init_altitude=None):
+        """The stages of a call, each in its span, inside a ``mmw.gnd`` span the caller opens."""
+        raw, *inputs = self._altitude_inputs(raw_re, raw_im)
+        with annotate("mmw.gnd.track"):
+            alts, final = self.track(*inputs, self.start(init_altitude))
         if self.stop_after == "altitude":
             return alts, final
         pts, valid, count = self.detect_frames(raw, alts)
         return GroundPipelineOut(pts, valid, count, alts, final)
+
+    def forward(self, raw_re: torch.Tensor, raw_im: torch.Tensor, init_altitude=None):
+        with annotate("mmw.gnd"):
+            return self.scan(raw_re, raw_im, init_altitude)
 
 
 def build_ground_point_cloud_pipeline(

@@ -159,6 +159,8 @@ class VelocityPipeline(nn.Module):
             angle_bins[valid].astype(np.float32)))
         self.register_buffer("range_window", torch.from_numpy(
             np.hanning(ns).astype(np.float32)))
+        self.register_buffer("zoom_window", torch.from_numpy(
+            np.hanning(loops).astype(np.float32)))
 
     @property
     def ransac_rows(self) -> int:
@@ -279,7 +281,7 @@ class VelocityPipeline(nn.Module):
 
         def half(lo, hi):
             return dft.zoom_dft_factors(lo * scale, hi * scale, n=nv, m=nv,
-                                        fs=self.vel_fs * 2.0, window=np.hanning(nv))
+                                        fs=self.vel_fs * 2.0, window=self.zoom_window)
 
         ncc, nss = half(neg_bins.amin(dim=-1) + 2 * vmax,
                         neg_bins.amax(dim=-1) + 2 * vmax)

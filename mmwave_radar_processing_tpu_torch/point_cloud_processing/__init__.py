@@ -9,7 +9,10 @@ from mmwave_radar_processing_tpu_torch.point_cloud_processing.vehicle_vel_estima
 )
 from mmwave_radar_processing_tpu_torch.point_cloud_processing.vel_estimator import (
     VelocityEstimator,
+    carry_passing,
     ego_vel_from_points,
+    passes_gates,
 )
 
-__all__ = ["VelocityEstimator", "VehicleVelEstimator", "ego_vel_from_points"]
+__all__ = ["VelocityEstimator", "VehicleVelEstimator", "carry_passing", "ego_vel_from_points",
+           "passes_gates"]

@@ -5,6 +5,10 @@ v`` over the point cloud, 2D (x, y) for the standard geometry and 3D for
 the ODS one, and keeps the last estimate that passes both gates (reference
 :172-181).  Takes a plain ``(N, 4)`` array or a fixed-capacity padded
 ``(points, valid)`` pair, as a pipeline emits it.
+
+The gates are written once, in :func:`passes_gates`; :func:`carry_passing`
+applies them to a recording's fits at once, as the per-frame estimator's
+``update_and_check_current_vel_measurements`` does frame after frame.
 """
 
 from __future__ import annotations
@@ -45,6 +49,39 @@ def ego_vel_from_points(
         h, -points[..., 3], valid, min_samples=min_samples,
         residual_threshold=residual_threshold, max_trials=max_trials,
         scores=scores, generator=generator)
+
+
+def passes_gates(r2, inlier_fraction, min_r2_threshold: float, min_inlier_percent: float):
+    """The estimator's gates (reference :172-181): R^2 and the inlier share each at least its threshold.
+
+    Floats give a bool, tensors a bool tensor.
+    """
+    return (r2 >= min_r2_threshold) & (inlier_fraction >= min_inlier_percent)
+
+
+def carry_passing(
+    proposed: torch.Tensor, r2: torch.Tensor, inlier_fraction: torch.Tensor,
+    init: torch.Tensor, *, min_r2_threshold: float, min_inlier_percent: float,
+):
+    """The estimate a recording's frames keep: each frame's last passing proposal at or before it.
+
+    ``proposed`` ``float32 [T, 3]``, ``r2`` and ``inlier_fraction`` ``[T]``
+    of frames in time order, and ``init`` ``[3]``, the estimate before the
+    first frame.  Returns ``(carried [T, 3], final [3])``: a frame's carried
+    estimate is the proposal of the last frame at or before it that
+    :func:`passes_gates`, else ``init``; ``final`` is the last frame's (or
+    ``init``), the carry of a chunked recording.  A prefix maximum over the
+    frame indices, on the device and without a host sync.
+    """
+    n = proposed.shape[0]
+    init = init.to(device=proposed.device, dtype=proposed.dtype)
+    if n == 0:
+        return proposed, init.clone()
+    ok = passes_gates(r2, inlier_fraction, min_r2_threshold, min_inlier_percent)
+    frames = torch.arange(n, device=proposed.device)
+    last = torch.cummax(torch.where(ok, frames, -1), dim=0).values
+    carried = torch.where((last >= 0)[:, None], proposed[last.clamp_min(0)], init)
+    return carried, carried[-1]
 
 
 class VelocityEstimator(Processor):
@@ -94,8 +131,8 @@ class VelocityEstimator(Processor):
 
     def update_and_check_current_vel_measurements(self):
         """Keep the last estimate unless the new one passes both gates."""
-        if (self.estimated_R2 >= self.min_R2_threshold
-                and self.inlier_percent >= self.min_inlier_percent):
+        if passes_gates(self.estimated_R2, self.inlier_percent, self.min_R2_threshold,
+                        self.min_inlier_percent):
             self.current_velocity_estimate = self.proposed_velocity_estimate.copy()
 
     def update_history(self, estimated=None, ground_truth=None):

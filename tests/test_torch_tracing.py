@@ -8,7 +8,10 @@
   lies in one of its stages, but for the DBS gate's select, which follows
   its three stages inside ``mmw.dbs``.  With more directions than chirps the
   synthetic aperture opens ``mmw.sa.range_dft`` twice: the DFT of each
-  frame's chirps, then the magnitude after the product.
+  frame's chirps, then the magnitude after the product.  The ground scan
+  and the velocity analysis open ``mmw.gnd`` around ``mmw.gnd.range``,
+  ``.zoom``, ``.track``, ``.detect`` and ``.aoa``, and the velocity analysis
+  ``mmw.gnd.vel`` after them.
 - Outputs are bit-identical with the profiler on and off, and each
   ``stop_after`` return closes the spans it leaves.
 """
@@ -22,8 +25,10 @@ import torch
 from mmwave_radar_processing_tpu_torch import (
     build_dbs_pipeline,
     build_full_pipeline,
+    build_ground_point_cloud_pipeline,
     build_point_cloud_pipeline,
     build_synthetic_aperture_pipeline,
+    build_velocity_analysis_pipeline,
     build_velocity_pipeline,
 )
 from mmwave_radar_processing_tpu_torch.config import load_cfg
@@ -39,6 +44,9 @@ VEL_STAGES = ("mmw.vel.window_dft", "mmw.vel.responses", "mmw.vel.vx", "mmw.vel.
 DBS_STAGES = ("mmw.dbs.front", "mmw.dbs.pick", "mmw.dbs.plain")
 SA_STAGES = ("mmw.sa.window", "mmw.sa.gate", "mmw.sa.phases", "mmw.sa.product",
              "mmw.sa.range_dft", "mmw.sa.depth")
+GND_STAGES = ("mmw.gnd.range", "mmw.gnd.zoom", "mmw.gnd.track", "mmw.gnd.detect",
+              "mmw.gnd.aoa")
+ANALYSIS_STAGES = GND_STAGES + ("mmw.gnd.vel",)
 #: per call: how often each span opens, and the pipeline span each stage lies in
 CALLS = {
     "pointcloud": ({"mmw.pc": 1, **dict.fromkeys(PC_STAGES, 1)}, {"mmw.pc": PC_STAGES}),
@@ -52,6 +60,9 @@ CALLS = {
     "sa": ({"mmw.sa": 1, **dict.fromkeys(SA_STAGES, 1)}, {"mmw.sa": SA_STAGES}),
     "sa_dft_first": ({"mmw.sa": 1, **dict.fromkeys(SA_STAGES, 1), "mmw.sa.range_dft": 2},
                      {"mmw.sa": SA_STAGES}),
+    "ground": ({"mmw.gnd": 1, **dict.fromkeys(GND_STAGES, 1)}, {"mmw.gnd": GND_STAGES}),
+    "velocity_analysis": ({"mmw.gnd": 1, **dict.fromkeys(ANALYSIS_STAGES, 1)},
+                          {"mmw.gnd": ANALYSIS_STAGES}),
 }
 #: pipelines whose own span ends in operators after its last stage: the DBS gate's select
 GATED_AFTER_STAGES = ("dbs",)
@@ -86,6 +97,19 @@ def _call(cfg, inputs, kind, **kw):
         pipe = build_dbs_pipeline(cfg, device="cpu")
         vels = torch.tensor([[0.5, 0.2, 0.0], [0.05, 0.02, 0.0], [0.25, 0.0, 0.0]])
         return lambda: pipe(re, im, vels)
+    if kind == "ground":
+        pipe = build_ground_point_cloud_pipeline(cfg, device="cpu")
+        return lambda: pipe(re, im)
+    if kind == "velocity_analysis":  # upstream's analyzer settings, 64 slots
+        pipe = build_velocity_analysis_pipeline(
+            cfg, az_antenna_idxs=(0, 3, 4, 7), el_antenna_idxs=(9, 8, 5, 4),
+            vel_cfar_params=dict(num_train=5, num_guard=2, rho=0.6, alpha=4.0),
+            min_altitude_m=0.25, zoom_search_region_m=0.2, altitude_search_limit_m=0.4,
+            range_bias=0.0, precise_est_enabled=True, max_dets=64, num_angle_bins=64,
+            shift_az_resp=True, shift_el_resp=False, min_r2_threshold=0.2,
+            min_inlier_percent=0.5, device="cpu")
+        scores = torch.randn((FRAMES, 20, 64), generator=torch.Generator().manual_seed(5))
+        return lambda: pipe(re, im, scores=scores)
     if kind.startswith("sa"):  # the depth head, streamed from the zero state
         # 70 chirps a frame: 8 directions keep the DFT after the element sum, 8 x 10 put it first
         el = np.deg2rad(np.linspace(-15, 15, 10)) if kind == "sa_dft_first" else np.array([0.0])

@@ -464,7 +464,8 @@ def test_zoom_factors_match_jax_with_per_frame_bands():
     kw = dict(n=70, m=70, fs=2 * 16.307, window=np.hanning(70))
     want = [jax.vmap(lambda a, b: mxu.zoom_dft_factors_dynamic(a, b, **kw)[i])(f1, f2)
             for i in (0, 1)]
-    got = dft.zoom_dft_factors(torch.from_numpy(f1), torch.from_numpy(f2), **kw)
+    got = dft.zoom_dft_factors(torch.from_numpy(f1), torch.from_numpy(f2), **dict(
+        kw, window=torch.from_numpy(np.hanning(70).astype(np.float32))))
     assert got[0].shape == (5, 70, 70)
     # float32 cos/sin of angles up to ~250 rad: the two libraries' cos and
     # sin may differ by an ulp of the angle's reduction
