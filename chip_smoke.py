@@ -107,6 +107,10 @@ failure (exit code != 0):
    the RadVel DBS deployment's [1024, 4, 63, 70] with D = 100
    (``time_dbs_pick``: the DBS pipeline's own spectrum and Doppler bins of
    ``bench.py``'s planes), within ``DBS_PICK_REL`` of its plain version;
+   the angle head's kernel at the velocity-analysis cell's [4096, 7, 63, 70]
+   with 512 slots, 81-131 filled a frame, and the 10 Hz point-cloud cell's
+   [1024, 7, 63, 100] with 128 (``time_aoa_head``), against its plain
+   version;
 14. ground kernel: the altitude recursion of the ground scan against its
    plain version (a loop of T steps over tensors) on the same CUDA tensors,
    equal bit for bit, at T in {1, 7, 1024, 5000}, precise and not, with a
@@ -433,10 +437,11 @@ SA_FRAMES = 32
 SA_VEL = (0.2, 0.01, 0.0)
 RANSAC_SEED = 0
 #: the hand-written kernels each bench metric's pipeline launches
-PATH_KERNELS = {"pointcloud": ("os_cfar_2d_detect",),
+PATH_KERNELS = {"pointcloud": ("os_cfar_2d_detect", "aoa_head"),
                 "velocity": ("doppler_az_responses", "prominent_peak"),
-                "combined": ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak"),
-                "ground": ("altitude_track",), "capon": ("capon_power",),
+                "combined": ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak",
+                             "aoa_head"),
+                "ground": ("altitude_track", "aoa_head"), "capon": ("capon_power",),
                 "bartlett": ("bartlett_power",)}
 #: bench_entry: the entry point's ms a batch within this factor of measure_path's
 BENCH_ENTRY_FACTOR = 1.5
@@ -452,8 +457,10 @@ RECORDING_FRAMES, RECORDING_BATCH = 40, 16
 RECORDING_EGO = (0.8, 0.3, -0.1)
 RECORDING_MODES = ("2d", "points", "ground")
 #: the hand-written kernels each mode launches once a batch
-RECORDING_KERNELS = {"2d": ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak"),
-                     "points": ("os_cfar_2d_detect",), "ground": ("altitude_track",)}
+RECORDING_KERNELS = {"2d": ("os_cfar_2d_detect", "doppler_az_responses", "prominent_peak",
+                            "aoa_head"),
+                     "points": ("os_cfar_2d_detect", "aoa_head"),
+                     "ground": ("altitude_track", "aoa_head")}
 THROUGHPUT_FRAMES, THROUGHPUT_BATCH, LOADER_THREADS = 4196, 1024, 8
 VELOCITY_ANALYSIS_FRAMES = 16
 #: analyzer_configs/velocity_analysis_config.yaml, as this script reads no YAML
@@ -2281,6 +2288,105 @@ def time_steering_phases(device):
     return {**res, "max_abs_err": err}
 
 
+#: the angle head's timings: (name, cfg, frames, slots, loops, fill), the
+#: velocity-analysis cell's call (512 slots, ~100 filled a frame in ~20 gated
+#: rows) and the 10 Hz point-cloud cell's (128 slots, every one filled)
+AOA_HEAD_SHAPES = (("groundvel", FLAGSHIP_CFG, 4096, 512, 70, (81, 131)),
+                   ("ods10", os.path.join(HERE, "configs", "6843_RadVel_ods_10Hz.cfg"),
+                    1024, 128, 100, None))
+#: kernel against plain version: points more than this apart (m) are angle
+#: flips on near-ties, at most MAX_ANGLE_FLIP_SHARE of the filled slots
+AOA_HEAD_ATOL = 1e-5
+
+
+def aoa_head_inputs(rows, frames, slots, loops, fill, device, seed=0):
+    """``(R [frames, 7, rows, loops], r_i, v_i, valid)``: a random cube and detection slots.
+
+    ``fill`` ``(lo, hi)``: each frame fills a prefix of ``lo..hi`` slots with
+    bins in a band of 20 rows, as the ground detector's gate leaves; None
+    fills every slot at any row.
+    """
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (frames, 7, rows, loops)
+    R = torch.complex(torch.randn(shape, generator=g, device=device),
+                      torch.randn(shape, generator=g, device=device))
+    v_i = torch.randint(0, loops, (frames, slots), generator=g, device=device)
+    if fill is None:
+        r_i = torch.randint(0, rows, (frames, slots), generator=g, device=device)
+        valid = torch.ones((frames, slots), dtype=torch.bool, device=device)
+    else:
+        band = torch.randint(0, rows - 20, (frames, 1), generator=g, device=device)
+        r_i = band + torch.randint(0, 20, (frames, slots), generator=g, device=device)
+        counts = torch.randint(fill[0], fill[1] + 1, (frames, 1), generator=g, device=device)
+        valid = torch.arange(slots, device=device) < counts
+    return R, r_i, v_i, valid
+
+
+def time_aoa_head(device):
+    """The angle head's kernel and its plain version at the cells' shapes (``AOA_HEAD_SHAPES``), in turns.
+
+    Held to its plain version first: the velocities equal, points within
+    ``AOA_HEAD_ATOL`` but on at most ``MAX_ANGLE_FLIP_SHARE`` of the filled
+    slots (near-ties of the angle spectrum), invalid slots 0.  Timed behind a
+    busy device.  Bound: the filled slots' distinct range rows of the 7
+    channels read once, their bins, every flag, the points written; 8 U L
+    operations a filled slot for the Doppler values (a complex
+    multiply-add 8), 8 A M for each subset's angle DFT and 3 M for its power.
+    """
+    from mmwave_radar_processing_tpu_torch import load_cfg
+    from mmwave_radar_processing_tpu_torch.ops import dft
+    from mmwave_radar_processing_tpu_torch.ops.kernels.aoa_head import aoa_head as launched
+    from mmwave_radar_processing_tpu_torch.parallel.point_stages import (
+        AngleHead, antenna_union,
+    )
+
+    out = {}
+    for name, path, frames, slots, loops, fill in AOA_HEAD_SHAPES:
+        cfg = load_cfg(path, array_geometry="ods", array_direction="down")
+        layout = antenna_union(AZ_IDXS, EL_IDXS, reformat_input=True,
+                               num_rx=cfg.num_rx_antennas)
+        head = AngleHead(cfg, az_pos=layout.az_pos, el_pos=layout.el_pos, num_angle_bins=64,
+                         shift_az_resp=True, shift_el_resp=False).to(device)
+        rows = cfg.num_adc_samples
+        _, dop = (dft.to_matrix(f).to(device) for f in dft.range_doppler_factors(rows, loops))
+        R, r_i, v_i, valid = aoa_head_inputs(rows, frames, slots, loops, fill, device)
+
+        def kernel():
+            return head(R, dop, r_i, v_i, valid)
+
+        def plain():
+            return head.plain(R, dop, r_i, v_i, valid)
+
+        before = launched.launches
+        got = kernel()
+        if launched.launches != before + 1:
+            raise RuntimeError("the angle head did not launch its kernel")
+        want = plain()
+        filled = int(valid.sum())
+        apart = int(((got[..., :3] - want[..., :3]).abs().amax(-1) > AOA_HEAD_ATOL).sum())
+        vel_equal = bool(torch.equal(got[..., 3], want[..., 3]))
+        zeros = bool((got[~valid] == 0).all())
+        del got, want
+        if not (vel_equal and zeros and apart <= MAX_ANGLE_FLIP_SHARE * filled):
+            raise RuntimeError(f"angle head kernel ({name}): {apart} of {filled} points apart, "
+                               f"velocities equal {vel_equal}, invalid slots 0 {zeros}")
+        kernel_ms, plain_ms, turns = take_turns(kernel, plain, 50, 5, queued=True)
+        u = len(layout.union_idx)
+        # (frame, row) pairs of the filled slots: each row of the U channels read once
+        frame_rows = torch.arange(frames, device=device)[:, None] * rows + r_i
+        rows_read = int(torch.unique(frame_rows[valid]).numel())
+        n_bytes = 8 * loops * u * rows_read + 16 * filled + frames * slots * (1 + 16)
+        m = head.angle_bins.numel()
+        angle_ops = sum((8 * len(p) + 3) * m for p in (layout.az_pos, layout.el_pos))
+        res = timing(kernel_ms, plain_ms, n_bytes, filled * (8 * u * loops + angle_ops))
+        emit(phase="aoa_head_timing", case=name, shape=[frames, u, rows, loops], slots=slots,
+             filled=filled, distinct_rows=rows_read, turns=turns, timed_behind_a_busy_device=True,
+             launch_to_launch_ms=cuda_ms(kernel, 50), points_apart=apart, **res)
+        out[name] = {**res, "points_apart": apart}
+        del R, r_i, v_i, valid
+    return out
+
+
 def time_dbs_pick(cfg, raw_re, raw_im):
     """The DBS pick kernel and its plain version at the DBS deployment's [1024, 4, 63, 70], D = 100, in turns.
 
@@ -3865,6 +3971,7 @@ def kernel_times():
     time_prominent_peak(cfg, raw_re, raw_im, alts)
     time_dbs_pick(cfg, raw_re, raw_im)
     del raw_re, raw_im, alts
+    time_aoa_head(device)
     time_steering_phases(device)
     time_responses(build_velocity_pipeline(cfg, device=device), device)
     time_noise(device)
@@ -3956,6 +4063,7 @@ def main():
     peak_ms = time_prominent_peak(cfg, raw_re, raw_im, alts)
     steering_ms = time_steering_phases(device)
     dbs_pick_ms = time_dbs_pick(cfg, raw_re, raw_im)
+    time_aoa_head(device)
     measure_ground_stages(ground, raw_re, raw_im)
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts

@@ -6,7 +6,8 @@ import torch
 def wrappers():
     """Every hand-written kernel's wrapper by name; each counts its launches in ``.launches``."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import (
-        altitude_track, beamform, dbs_pick, doppler_az, os_cfar, peaks, rank_select, steering,
+        altitude_track, aoa_head, beamform, dbs_pick, doppler_az, os_cfar, peaks, rank_select,
+        steering,
     )
 
     return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect,
@@ -17,7 +18,8 @@ def wrappers():
             "altitude_track": altitude_track.altitude_track,
             "prominent_peak": peaks.prominent_peak,
             "steering_phases": steering.steering_phases,
-            "dbs_pick": dbs_pick.dbs_pick}
+            "dbs_pick": dbs_pick.dbs_pick,
+            "aoa_head": aoa_head.aoa_head}
 
 
 def count_launches(fn):

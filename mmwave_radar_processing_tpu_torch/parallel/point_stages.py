@@ -5,7 +5,8 @@ union of a point-cloud front (:func:`antenna_union`) and the angle head that
 turns detections into FLU points (:class:`AngleHead`).  The range DFT with
 the virtual-array reformat folded in is ``ops.dft.range_dft_input``.  The
 point-cloud and ground pipelines call all of these; the viewer's ``det2d``
-group calls the head on every virtual channel.
+group calls the head on every virtual channel.  On the card the head is one
+launch of a hand-written kernel (``csrc/aoa_head.cu``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 
 from mmwave_radar_processing_tpu_torch.config import RadarConfig, grids
 from mmwave_radar_processing_tpu_torch.ops import dft
+from mmwave_radar_processing_tpu_torch.ops.kernels import aoa_head as aoa_kernel
 from mmwave_radar_processing_tpu_torch.processors.point_cloud import (
     spherical_to_cartesian_flu,
 )
@@ -71,9 +73,15 @@ class AngleHead(nn.Module):
 
     ``R`` is a range-transformed cube ``complex64 [B, A, W, L]`` and ``dop``
     its Doppler DFT matrix; ``az_pos`` and ``el_pos`` index ``R``'s channel
-    axis.  An empty position set gives zero angles on its axis.  The head's
-    state is its constants: the angle DFT matrices ``az_dft``/``el_dft``,
-    the bin angles ``angle_bins`` and the positions.
+    axis.  An empty position set gives zero angles on its axis; a slot whose
+    ``valid`` is False gives 0.  The head's state is its constants: the
+    angle DFT matrices ``az_dft``/``el_dft``, the bin angles ``angle_bins``
+    and the positions.
+
+    Dispatches on the device of ``R``: a CPU tensor takes the plain version
+    (:meth:`plain`), any other the hand-written CUDA kernel
+    (:mod:`..ops.kernels.aoa_head`), which reads only the filled slots' rows,
+    or raises.  There is no fallback from one to the other.
     """
 
     def __init__(self, cfg: RadarConfig, *, az_pos: Sequence[int], el_pos: Sequence[int],
@@ -81,6 +89,8 @@ class AngleHead(nn.Module):
         super().__init__()
         az_pos, el_pos = np.asarray(az_pos, int), np.asarray(el_pos, int)
         self.has_az, self.has_el = bool(az_pos.size), bool(el_pos.size)
+        # the kernel's positions, on the host
+        self.positions = tuple(int(p) for p in az_pos), tuple(int(p) for p in el_pos)
         # affine bin grids (exact: the reference grids are arange-generated)
         self.range_res = cfg.range_res_m
         self.vel0, self.vel_res = -cfg.vel_max_m_s, cfg.vel_res_m_s
@@ -95,6 +105,17 @@ class AngleHead(nn.Module):
 
     def forward(self, R: torch.Tensor, dop: torch.Tensor, r_i: torch.Tensor,
                 v_i: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if R.device.type == "cpu":
+            return self.plain(R, dop, r_i, v_i, valid)
+        az_pos, el_pos = self.positions
+        return aoa_kernel.aoa_head(
+            R, dop, r_i, v_i, valid, az_pos=az_pos, el_pos=el_pos, az_dft=self.az_dft,
+            el_dft=self.el_dft, angle_bins=self.angle_bins, range_res=self.range_res,
+            vel0=self.vel0, vel_res=self.vel_res)
+
+    def plain(self, R: torch.Tensor, dop: torch.Tensor, r_i: torch.Tensor,
+              v_i: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """The plain version: every slot's rows gathered, the angle spectra, the points, then the mask."""
         az = el = torch.zeros(r_i.shape, dtype=torch.float32, device=r_i.device)
         if self.has_az or self.has_el:
             vals = dft.rd_values(R, dop, r_i, v_i)  # [B, A, K]
