@@ -23,9 +23,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 from mmwave_radar_processing_tpu_torch.ops.kernels import sorting_network
+from mmwave_radar_processing_tpu_torch.utils.logger import get_logger
+from mmwave_radar_processing_tpu_torch.utils.profiling import setup_span
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -92,17 +95,22 @@ def build(name: str) -> Path:
         include = ["-I", str(include_dir)]
     cmd = [find_nvcc(), *NVCC_FLAGS, *include, "-o", str(tmp),
            str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    t0 = time.perf_counter()
+    with setup_span(f"nvcc.{name}"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n"
                            f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
     os.replace(tmp, lib)
+    get_logger(__name__).info("built %s with nvcc in %.2f s", lib.name,
+                              time.perf_counter() - t0)
     return lib
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
-    return ctypes.CDLL(str(build(name)))
+    with setup_span(f"kernel.{name}"):
+        return ctypes.CDLL(str(build(name)))

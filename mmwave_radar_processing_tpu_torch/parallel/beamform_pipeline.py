@@ -58,7 +58,7 @@ from mmwave_radar_processing_tpu_torch.processors.synthetic_array import (
     steering_phases,
     velocity_gate,
 )
-from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate, timed_builder
 
 OUTPUTS = ("magnitude", "depth")
 
@@ -196,6 +196,7 @@ class SyntheticAperturePipeline(nn.Module):
             return out if state is None else (out, after)
 
 
+@timed_builder("synthetic_aperture")
 def build_synthetic_aperture_pipeline(
     cfg: RadarConfig,
     *,

@@ -25,6 +25,7 @@ from mmwave_radar_processing_tpu_torch.parallel.velocity_pipeline import (
     VelocityPipeline,
     build_velocity_pipeline,
 )
+from mmwave_radar_processing_tpu_torch.utils.profiling import timed_builder
 
 
 class FullPipeline(nn.Module):
@@ -42,6 +43,7 @@ class FullPipeline(nn.Module):
                 self.velocity(raw_re, raw_im, altitude, gumbel=gumbel))
 
 
+@timed_builder("full")
 def build_full_pipeline(
     cfg: RadarConfig,
     *,

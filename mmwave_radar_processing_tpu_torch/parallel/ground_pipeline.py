@@ -55,7 +55,7 @@ from mmwave_radar_processing_tpu_torch.parallel.point_stages import (
 )
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.detection import COS_60
-from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate, timed_builder
 
 DEFAULT_VEL_CFAR_PARAMS = dict(num_train=12, num_guard=4, rho=0.5, alpha=15.0)
 STOP_AFTER = (None, "altitude")
@@ -259,6 +259,7 @@ class GroundPipeline(nn.Module):
             return self.scan(raw_re, raw_im, init_altitude)
 
 
+@timed_builder("ground")
 def build_ground_point_cloud_pipeline(
     cfg: RadarConfig,
     *,

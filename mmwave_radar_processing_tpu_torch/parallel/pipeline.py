@@ -39,7 +39,7 @@ from mmwave_radar_processing_tpu_torch.parallel.point_stages import (
     check_planes,
 )
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
-from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate, timed_builder
 
 DEFAULT_CFAR_PARAMS = dict(num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.0)
 
@@ -135,6 +135,7 @@ class PointCloudPipeline(nn.Module):
         return PointCloudBatch(pts, valid, count)
 
 
+@timed_builder("point_cloud")
 def build_point_cloud_pipeline(
     cfg: RadarConfig,
     *,

@@ -46,7 +46,7 @@ from mmwave_radar_processing_tpu_torch.parallel.point_stages import check_planes
 from mmwave_radar_processing_tpu_torch.processors.base import resolve_device
 from mmwave_radar_processing_tpu_torch.processors.micro_doppler import spectrogram_stack
 from mmwave_radar_processing_tpu_torch.processors.virtual_array import reformat_channels
-from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate, timed_builder
 
 
 class SpectralMaps(NamedTuple):
@@ -322,6 +322,7 @@ def build_strip_map_pipeline(
                                    reformat_input=reformat_input), device)
 
 
+@timed_builder("dbs")
 def build_dbs_pipeline(
     cfg: RadarConfig,
     *,

@@ -39,7 +39,7 @@ from mmwave_radar_processing_tpu_torch.point_cloud_processing.vel_estimator impo
     carry_passing,
     ego_vel_from_points,
 )
-from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate, timed_builder
 
 
 class VelocityAnalysisOut(NamedTuple):
@@ -99,6 +99,7 @@ class VelocityAnalysisPipeline(nn.Module):
                                    fit.inlier_fraction, carried, g.final_altitude, final)
 
 
+@timed_builder("velocity_analysis")
 def build_velocity_analysis_pipeline(
     cfg: RadarConfig,
     *,

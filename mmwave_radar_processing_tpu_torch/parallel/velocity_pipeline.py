@@ -58,7 +58,7 @@ from mmwave_radar_processing_tpu_torch.processors.velocity_estimator import (
     ODS_AZ_SETS_VIRTUAL,
     ODS_EL_SETS_VIRTUAL,
 )
-from mmwave_radar_processing_tpu_torch.utils.profiling import annotate
+from mmwave_radar_processing_tpu_torch.utils.profiling import annotate, timed_builder
 
 MAX_TRIALS = 20
 MIN_SAMPLES = 10
@@ -382,6 +382,7 @@ class VelocityPipeline(nn.Module):
                                      inlier[:, 1])
 
 
+@timed_builder("velocity")
 def build_velocity_pipeline(
     cfg: RadarConfig,
     *,

@@ -8,7 +8,8 @@
 - ``logger``     — the package's stdout logger (JAX: ``utils/logger.py``).
 - ``env``        — the ``.env`` directory-root convention (JAX: ``utils/env.py``).
 - ``rotations``  — 2D rotations (JAX: ``utils/rotations.py``; numpy).
-- ``profiling``  — ``StageTimer``, ``fence``, ``trace``, ``annotate``.
+- ``profiling``  — ``StageTimer``, ``fence``, ``trace``, ``annotate``; the
+                   set-up records ``SETUP`` (``mmw.setup.*``).
 - ``checkpoint`` — processor states to and from ``.npz``, in the JAX package's format.
 """
 

@@ -7,7 +7,9 @@ batch is copied to the device on a side stream while the previous one
 computes, and point clouds and ego-velocities (or the ground altitude) come
 back into host arrays.  Writes the same ``.npz`` as ``process_recording.py``
 (keys ``points``, ``valid`` and ``velocity`` or ``altitude``) and logs the
-per-stage timing.  Runs on the CPU only when given ``--device cpu``.
+per-stage timing; after the first batch it logs the set-up once (CUDA start,
+the pipeline's build, each CUDA library's load and any ``nvcc`` build, the
+first call).  Runs on the CPU only when given ``--device cpu``.
 
 Example (from the repository root):
     python scripts/torch_simulate_dataset.py --out /tmp/sim_radvel --frames 300
@@ -29,9 +31,12 @@ load_env()
 
 from mmwave_radar_processing_tpu_torch.config import load_cfg
 from mmwave_radar_processing_tpu_torch.data.cpsl_dataset import CpslDS
-from mmwave_radar_processing_tpu_torch.parallel.recording import process_recording
+from mmwave_radar_processing_tpu_torch.parallel.recording import (
+    build_recording_pipeline,
+    process_recording,
+)
 from mmwave_radar_processing_tpu_torch.utils.logger import setup_logger
-from mmwave_radar_processing_tpu_torch.utils.profiling import StageTimer
+from mmwave_radar_processing_tpu_torch.utils.profiling import SETUP, StageTimer
 
 
 def main():
@@ -63,11 +68,18 @@ def main():
             else "points" if args.no_velocity else "2d")
     logger.info("%d frames, mode %s, device %s", dataset.num_frames, mode, args.device)
 
+    pipeline = build_recording_pipeline(cfg, mode, max_dets=args.max_dets, device=args.device)
+
+    def log_setup(module, inputs, outputs):
+        hook.remove()
+        SETUP.log_report("set-up")
+
+    hook = pipeline.register_forward_hook(log_setup)
     timer = StageTimer()
     out = process_recording(dataset, cfg, mode=mode, batch=args.batch,
                             altitude=args.altitude, max_dets=args.max_dets,
                             loader_threads=args.loader_threads, device=args.device,
-                            timer=timer)
+                            timer=timer, pipeline=pipeline)
     np.savez_compressed(args.out, **out)
     logger.info("wrote %s (%d frames)", args.out, len(out["points"]))
     timer.log_report()
