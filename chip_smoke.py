@@ -110,7 +110,10 @@ failure (exit code != 0):
    the angle head's kernel at the velocity-analysis cell's [4096, 7, 63, 70]
    with 512 slots, 81-131 filled a frame, and the 10 Hz point-cloud cell's
    [1024, 7, 63, 100] with 128 (``time_aoa_head``), against its plain
-   version;
+   version; the RANSAC fit's kernel on the arguments of the fit the
+   velocity-analysis cell's and the combined cell's set-up make
+   (``port_bench``'s cells, at their batch of 4096 frames; ``time_ransac_fit``),
+   against its plain version;
 14. ground kernel: the altitude recursion of the ground scan against its
    plain version (a loop of T steps over tensors) on the same CUDA tensors,
    equal bit for bit, at T in {1, 7, 1024, 5000}, precise and not, with a
@@ -368,6 +371,24 @@ DBS_PICK_REPLACES = "mmwave_radar_processing_tpu/parallel/spectral_pipeline.py:2
 #: the DBS pick kernel vs its plain version: four products summed in another
 #: order round apart by a few ulp of the frame's largest value
 DBS_PICK_REL = 1e-6
+#: the RANSAC fit: no Pallas kernel, plain jnp
+RANSAC_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/ransac_fit.cu"
+RANSAC_REPLACES = "mmwave_radar_processing_tpu/ops/ransac.py:72"
+#: the fit's timings: (name, benchmark cell) whose own fit is timed, the
+#: arguments of the one ransac_linear call the cell's set-up makes over its
+#: batch (seed RANSAC_CELL_SEED).  Measured on an H100: the groundvel call is
+#: 4096 3D fits of 512 slots with 19-250 valid (mean 112.0), every fit ok; the
+#: combined cell's 4096 x 2 1D fits of 70 velocity rows with 0-17 found (mean
+#: 5.26), 544 of 8192 ok (0.15 or 0.20 m/s a frame, as fit_vy broadcasts it)
+RANSAC_CELLS = (("groundvel", "ods20-groundvel-flight-bulk"), ("ods20", "ods20-combined-bulk"))
+RANSAC_CELL_SEED = 2147483647
+#: kernel against plain version: fits whose inlier masks differ (a residual
+#: within rounding of the threshold, summed in another order) may be at most
+#: this share; where the masks agree, coefficients within RANSAC_RTOL and
+#: R^2 within RANSAC_R2_ATOL
+MAX_RANSAC_FLIP_SHARE = 2e-3
+RANSAC_RTOL = 1e-4
+RANSAC_R2_ATOL = 1e-5
 #: the ground scan's recursion: no Pallas kernel, XLA's lax.scan
 GROUND_SOURCE = "mmwave_radar_processing_tpu_torch/csrc/altitude_track.cu"
 GROUND_REPLACES = "mmwave_radar_processing_tpu/parallel/ground_pipeline.py:248"
@@ -1017,14 +1038,16 @@ def velocity_agreement(gpu, cpu):
 def check_velocity(cfg, device, frames):
     """Velocity pipeline on the GPU vs the CPU port, coarse and precise.
 
-    Returns the response kernel's launches in each mode's GPU run, and the
-    peak kernel's under ``"<mode>_peaks"``.
+    Returns the response kernel's launches in each mode's GPU run, the
+    peak kernel's under ``"<mode>_peaks"`` and the RANSAC kernel's under
+    ``"<mode>_ransac"``.
     """
     from mmwave_radar_processing_tpu_torch import VelocityBatch, build_velocity_pipeline
     from mmwave_radar_processing_tpu_torch.ops.kernels.doppler_az import (
         doppler_az_responses,
     )
     from mmwave_radar_processing_tpu_torch.ops.kernels.peaks import prominent_peak
+    from mmwave_radar_processing_tpu_torch.ops.kernels.ransac_fit import ransac_fit
 
     cpu_in = [torch.from_numpy(a) for a in frames]
     gpu_in = [t.to(device) for t in cpu_in]
@@ -1036,11 +1059,14 @@ def check_velocity(cfg, device, frames):
                                  torch.Generator().manual_seed(RANSAC_SEED))
         g_gpu = gumbel.to(device)
         torch.cuda.synchronize()
-        doppler_az_responses.launches = prominent_peak.launches = 0
+        doppler_az_responses.launches = prominent_peak.launches = ransac_fit.launches = 0
         out_gpu = gpu(*gpu_in, gumbel=g_gpu)
         torch.cuda.synchronize()
         launches[mode] = doppler_az_responses.launches
         launches[f"{mode}_peaks"] = prominent_peak.launches
+        launches[f"{mode}_ransac"] = ransac_fit.launches
+        if launches[f"{mode}_ransac"] < 1:
+            raise RuntimeError(f"the {mode} velocity path never launched the RANSAC kernel")
         if launches[mode] < 1:
             raise RuntimeError(f"the {mode} velocity path never launched the "
                                "response kernel")
@@ -1053,6 +1079,7 @@ def check_velocity(cfg, device, frames):
             raise RuntimeError(f"velocity: shape {tuple(out_gpu.velocity.shape)}")
         emit(phase="velocity_slice", mode=mode, batch=len(frames[0]),
              launches=launches[mode], peak_launches=launches[f"{mode}_peaks"],
+             ransac_launches=launches[f"{mode}_ransac"],
              **velocity_agreement(out_gpu, out_cpu),
              vx_nonzero=int((out_gpu.vx != 0).sum()),
              az_r2_nonzero=int((out_gpu.az_r2 != 0).sum()),
@@ -1061,7 +1088,7 @@ def check_velocity(cfg, device, frames):
 
 
 def check_combined(cfg, device, frames):
-    """Combined pipeline on the GPU vs the CPU port; returns (CFAR, response, peak) launches."""
+    """Combined pipeline on the GPU vs the CPU port; returns (CFAR, response, peak, RANSAC) launches."""
     from mmwave_radar_processing_tpu_torch import (
         PointCloudBatch, VelocityBatch, build_full_pipeline,
     )
@@ -1072,6 +1099,7 @@ def check_combined(cfg, device, frames):
         os_cfar_2d_detect,
     )
     from mmwave_radar_processing_tpu_torch.ops.kernels.peaks import prominent_peak
+    from mmwave_radar_processing_tpu_torch.ops.kernels.ransac_fit import ransac_fit
 
     kw = dict(az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
               cfar_params=CFAR_PARAMS, max_dets=128)
@@ -1084,10 +1112,11 @@ def check_combined(cfg, device, frames):
     g_gpu = gumbel.to(device)
     torch.cuda.synchronize()
     os_cfar_2d_detect.launches = doppler_az_responses.launches = prominent_peak.launches = 0
+    ransac_fit.launches = 0
     pc_gpu, vel_gpu = gpu(*gpu_in, gumbel=g_gpu)
     torch.cuda.synchronize()
     launches = (os_cfar_2d_detect.launches, doppler_az_responses.launches,
-                prominent_peak.launches)
+                prominent_peak.launches, ransac_fit.launches)
     if min(launches) < 1:
         raise RuntimeError(f"the combined path missed a kernel: launches {launches}")
     pc_cpu, vel_cpu = cpu(*cpu_in, gumbel=gumbel)
@@ -1101,7 +1130,7 @@ def check_combined(cfg, device, frames):
         raise RuntimeError(f"combined: points differ by {pts_err} "
                            f"(count sum {int(pc_gpu.count.sum())})")
     emit(phase="combined_slice", batch=len(frames[0]), cfar_launches=launches[0],
-         response_launches=launches[1], peak_launches=launches[2],
+         response_launches=launches[1], peak_launches=launches[2], ransac_launches=launches[3],
          points_max_abs_diff=pts_err,
          **velocity_agreement(vel_gpu, vel_cpu))
     raised_gates("combined", pc_cpu, pc_gpu)
@@ -2446,6 +2475,114 @@ def time_dbs_pick(cfg, raw_re, raw_im):
     return {**res, "max_rel_err": rel}
 
 
+def cell_ransac_call(cell, device, seed):
+    """``(h, y, valid, kwargs)`` of the one ``ransac_linear`` call a benchmark cell's set-up makes.
+
+    ``cell`` a ``port_bench`` cell (``port_bench.lib.harness.Cell``); its
+    traffic's set-up makes the cell's inputs from ``seed`` and runs the
+    program's pipeline once over its batch.  The set-up's state is freed.
+    """
+    from port_bench.lib.harness import Context
+
+    from mmwave_radar_processing_tpu_torch.ops import ransac
+
+    calls, fit = [], ransac.ransac_linear
+
+    def keep(h, y, valid, **kw):
+        calls.append((h, y, valid, kw))
+        return fit(h, y, valid, **kw)
+
+    ransac.ransac_linear = keep
+    try:
+        run = cell.traffic_module().Run(Context(cell, seed, device))
+    finally:
+        ransac.ransac_linear = fit
+    run.release()
+    del run
+    if len(calls) != 1:
+        raise RuntimeError(f"{cell.name}: the set-up made {len(calls)} RANSAC calls, expected 1")
+    h, y, valid, kw = calls[0]
+    kw = {k: v for k, v in kw.items() if k != "generator"}
+    if kw.get("scores") is None:
+        raise RuntimeError(f"{cell.name}: the fit drew its own scores")
+    return h, y, valid, kw
+
+
+def time_ransac_fit(device):
+    """The RANSAC kernel and its plain version on the cells' own fits (``RANSAC_CELLS``), in turns.
+
+    Held to its plain version first: ``ok`` and the fractions of fits whose
+    masks agree equal, coefficients there within ``RANSAC_RTOL`` of the
+    fit's largest and R^2 within ``RANSAC_R2_ATOL``, masks apart on at most
+    ``MAX_RANSAC_FLIP_SHARE`` of the fits.  Timed behind a busy device.
+    Bound: bytes, each input the fits need read once (every valid flag; of
+    the valid rows only h, y and the scores, as the kernel reads them) and
+    each output written once; ``all_inputs_bytes`` beside it counts every
+    row.  Operations (nothing beside the bytes): per trial and valid row, the
+    k-th score's rounds (k compares), the sums (D (D + 3)) and the residual
+    and R^2 (2 D + 6), and the refit's sums and residuals.  Returns the
+    groundvel fit's ``timing`` with the combined cell's under ``"ods20"``.
+    """
+    from port_bench.lib.harness import Cell
+
+    from mmwave_radar_processing_tpu_torch.ops import ransac
+    from mmwave_radar_processing_tpu_torch.ops.kernels.ransac_fit import ransac_fit as launched
+
+    out = {}
+    for name, cell_name in RANSAC_CELLS:
+        h, y, valid, kw = cell_ransac_call(Cell.load(cell_name), device, RANSAC_CELL_SEED)
+        n, d = h.shape[-2:]
+        trials, k = kw["max_trials"], kw["min_samples"]
+
+        def kernel():
+            return ransac.ransac_linear(h, y, valid, **kw)
+
+        def plain():
+            return ransac.ransac_linear_reference(h, y, valid, **kw)
+
+        before = launched.launches
+        got = kernel()
+        if launched.launches != before + 1:
+            raise RuntimeError(f"ransac_linear ({name}) did not launch its kernel")
+        want = plain()
+        fits = got.ok.numel()
+        same = (got.inlier_mask == want.inlier_mask).all(dim=-1)
+        apart = int(fits - same.sum())
+        # a fit's largest coefficient difference over its largest coefficient
+        rel = float(((got.coef - want.coef).abs().amax(dim=-1)
+                     / want.coef.abs().amax(dim=-1).clamp_min(1e-6))[same].max())
+        r2_diff = float((got.r2 - want.r2).abs()[same].max())
+        equal = bool(torch.equal(got.ok, want.ok)) and bool(torch.equal(
+            got.inlier_fraction[same], want.inlier_fraction[same]))
+        fits_ok = int(got.ok.sum())
+        del got, want
+        if not (equal and apart <= MAX_RANSAC_FLIP_SHARE * fits and rel <= RANSAC_RTOL
+                and r2_diff <= RANSAC_R2_ATOL):
+            raise RuntimeError(f"RANSAC kernel ({name}): masks apart on {apart} of {fits} fits, "
+                               f"ok and fractions equal {equal}, coef rel. diff {rel}, "
+                               f"R^2 diff {r2_diff}")
+        kernel_ms, plain_ms, turns = take_turns(kernel, plain, 50, 5, queued=True)
+        rows = valid.reshape(fits, n).sum(dim=-1)
+        nv = int(rows.sum())
+        n_bytes = valid.numel() + nv * 4 * (d + 1 + trials) + fits * (4 * (d + 2) + 1 + n)
+        all_bytes = valid.numel() + 4 * (h.numel() + y.numel() + kw["scores"].numel()) \
+            + fits * (4 * (d + 2) + 1 + n)
+        n_ops = nv * (trials * (k + d * (d + 3) + 2 * d + 6) + d * (d + 3) + 2 * d + 6)
+        res = timing(kernel_ms, plain_ms, n_bytes, n_ops)
+        emit(phase="ransac_fit_timing", case=name, cell=cell_name, seed=RANSAC_CELL_SEED,
+             shape=[*h.shape[:-2], trials, n], features=d, valid_rows=nv,
+             valid_rows_a_fit={"min": int(rows.min()), "mean": nv / fits,
+                               "max": int(rows.max())},
+             fits_ok=fits_ok, turns=turns, timed_behind_a_busy_device=True,
+             launch_to_launch_ms=cuda_ms(kernel, 50), masks_apart=apart, coef_max_rel_diff=rel,
+             r2_max_abs_diff=r2_diff, all_inputs_bytes=all_bytes,
+             all_inputs_bound_ms=bound_ms(all_bytes, 0)[0], **res)
+        out[name] = {**res, "masks_apart": apart, "r2_max_abs_diff": r2_diff}
+        del h, y, valid, kw
+        torch.cuda.empty_cache()
+    return {**out["groundvel"], "ods20": out["ods20"]}
+
+
 def measure_ground_stages(ground, raw_re, raw_im):
     """Where the ground path's time goes at T = 1024: each stage alone, and one call profiled.
 
@@ -2884,23 +3021,25 @@ def check_recording_slice(cfg, device, dataset):
 
 
 def check_velocity_analysis(cfg, device, dataset, frames=VELOCITY_ANALYSIS_FRAMES):
-    """The per-frame velocity-analysis flow on the GPU vs the CPU port; returns ``kth_smallest`` launches.
+    """The per-frame velocity-analysis flow on the GPU vs the CPU port; returns its ``kth_smallest`` and ``ransac_fit`` launches.
 
     Both sides draw their RANSAC scores from a CPU generator seeded alike.
     The ground detector's 1D OS-CFAR (``os_1d``) reaches the k-th-smallest
-    kernel at least once a frame.
+    kernel at least once a frame; the points estimator's fit the RANSAC
+    kernel at least once.
     """
     from mmwave_radar_processing_tpu_torch.analysis import VelocityAnalyzer, analyze_velocity
     from mmwave_radar_processing_tpu_torch.ops.kernels.rank_select import kth_smallest
+    from mmwave_radar_processing_tpu_torch.ops.kernels.ransac_fit import ransac_fit
 
     kw = dict(start=0, end=frames)
     torch.cuda.synchronize()
-    kth_smallest.launches = 0
+    kth_smallest.launches = ransac_fit.launches = 0
     t0 = time.perf_counter()
     got, gt = analyze_velocity(dataset, cfg, VELOCITY_ANALYSIS_PARAMS, device=device, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = kth_smallest.launches
+    launches = {"kth_smallest": kth_smallest.launches, "ransac_fit": ransac_fit.launches}
     want, want_gt = analyze_velocity(dataset, cfg, VELOCITY_ANALYSIS_PARAMS, device="cpu", **kw)
     summaries = []
     for est, truth in ((got, gt), (want, want_gt)):
@@ -2912,13 +3051,13 @@ def check_velocity_analysis(cfg, device, dataset, frames=VELOCITY_ANALYSIS_FRAME
                                              analyzer.get_norm_errors())]))
     est_err = float(np.abs(got - want).max())
     summary_err = float(np.abs(summaries[0] - summaries[1]).max())
-    emit(phase="velocity_analysis", frames=frames, kth_smallest_launches=launches,
+    emit(phase="velocity_analysis", frames=frames, kth_smallest_launches=launches["kth_smallest"],
+         ransac_launches=launches["ransac_fit"],
          estimates_max_abs_diff=est_err, summary_max_abs_diff=summary_err,
          atol=VELOCITY_ATOL, vx_nonzero=int(np.count_nonzero(got[:, 0])),
          norm_error_mean=float(summaries[0][3, 0]), ms_per_frame=seconds / frames * 1e3)
-    if launches < frames:
-        raise RuntimeError(f"velocity analysis: kth_smallest launched {launches} times "
-                           f"over {frames} frames")
+    if launches["kth_smallest"] < frames or launches["ransac_fit"] < 1:
+        raise RuntimeError(f"velocity analysis: kernels launched {launches} over {frames} frames")
     if not (np.array_equal(gt, want_gt) and est_err <= VELOCITY_ATOL
             and summary_err <= VELOCITY_ATOL):
         raise RuntimeError(f"velocity analysis: estimates differ by {est_err}, "
@@ -3270,7 +3409,7 @@ def check_viewer_slice(cfg, device, frames):
     # the controller on the card: the precompute against the per-frame path
     by_kernel = {"detect": 0, "noise": 0, "kth": totals.get("kth_smallest", 0), "capon": 0,
                  "bartlett_cov": 0, "bartlett_snapshots": 0, "altitude": 0,
-                 "dbs_pick": totals["dbs_pick"]}
+                 "dbs_pick": totals["dbs_pick"], "ransac": totals.get("ransac_fit", 0)}
     by_kernel["detect"] = totals.get("os_cfar_2d_detect", 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_") as root:
         write_viewer_recording(cfg, root)
@@ -3299,6 +3438,7 @@ def check_viewer_slice(cfg, device, frames):
             by_kernel["bartlett_snapshots"] += per_frame["bartlett_power"]
             by_kernel["altitude"] += cached["altitude_track"] + per_frame["altitude_track"]
             by_kernel["dbs_pick"] += cached["dbs_pick"] + per_frame["dbs_pick"]
+            by_kernel["ransac"] += cached["ransac_fit"] + per_frame["ransac_fit"]
     emit(phase="viewer_slice", launches=by_kernel)
     return by_kernel
 
@@ -3646,7 +3786,8 @@ def check_drawing_slice(cfg, device):
             "bartlett_snapshots": per_frame.get("bartlett_power", 0),
             "altitude": per_frame.get("altitude_track", 0) + pre["altitude_track"],
             "steering": per_frame.get("steering_phases", 0) + pre["steering_phases"],
-            "dbs_pick": per_frame.get("dbs_pick", 0) + pre["dbs_pick"]}
+            "dbs_pick": per_frame.get("dbs_pick", 0) + pre["dbs_pick"],
+            "ransac": per_frame.get("ransac_fit", 0) + pre["ransac_fit"]}
 
 
 def check_angle_accuracy(device):
@@ -3929,7 +4070,7 @@ def build_kernels():
     from mmwave_radar_processing_tpu_torch.ops.kernels import _build
 
     names = ("os_cfar_detect", "doppler_az_responses", "beamform_power", "os_rank_select",
-             "altitude_track", "prominent_peak", "steering_phases", "dbs_pick")
+             "altitude_track", "prominent_peak", "steering_phases", "dbs_pick", "ransac_fit")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -3972,6 +4113,7 @@ def kernel_times():
     time_dbs_pick(cfg, raw_re, raw_im)
     del raw_re, raw_im, alts
     time_aoa_head(device)
+    time_ransac_fit(device)
     time_steering_phases(device)
     time_responses(build_velocity_pipeline(cfg, device=device), device)
     time_noise(device)
@@ -4064,6 +4206,7 @@ def main():
     steering_ms = time_steering_phases(device)
     dbs_pick_ms = time_dbs_pick(cfg, raw_re, raw_im)
     time_aoa_head(device)
+    ransac_ms = time_ransac_fit(device)
     measure_ground_stages(ground, raw_re, raw_im)
     measure_spectral_paths(cfg, device, raw_re, raw_im)
     del raw_re, raw_im, alts
@@ -4123,7 +4266,7 @@ def main():
                    rank_launches["noise"] + entry_launches.get("os_cfar_2d_noise", 0)
                    + viewer_launches["noise"] + drawing_launches["noise"],
                    noise_err, noise_ms),
-        rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches
+        rank_entry("kth_smallest", rank_launches["kth"] + analysis_launches["kth_smallest"]
                    + entry_launches.get("kth_smallest", 0) + viewer_launches["kth"]
                    + drawing_launches["kth"] + multidevice_launches.get("kth_smallest", 0),
                    kth_err,
@@ -4178,6 +4321,18 @@ def main():
          "replaces": DBS_PICK_REPLACES,
          "launches": 1 + viewer_launches["dbs_pick"] + drawing_launches["dbs_pick"],
          **dbs_pick_ms},
+        # no TPU kernel's counterpart: the JAX package's RANSAC is plain jnp;
+        # one launch a ransac_linear call on the card: the velocity and
+        # combined runs, the velocity analysis, the recordings, the viewer,
+        # the drawing side, the entry points and the multi-device ranks
+        {"name": "ransac_fit", "route": "cuda", "source": RANSAC_SOURCE,
+         "replaces": RANSAC_REPLACES,
+         "launches": vel_launches["coarse_ransac"] + vel_launches["precise_ransac"]
+         + comb_launches[3] + analysis_launches["ransac_fit"]
+         + sum(rec_launches[m].get("ransac_fit", 0) for m in RECORDING_MODES)
+         + viewer_launches["ransac"] + drawing_launches["ransac"]
+         + entry_launches.get("ransac_fit", 0) + multidevice_launches.get("ransac_fit", 0),
+         **ransac_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

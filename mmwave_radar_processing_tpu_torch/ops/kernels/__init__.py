@@ -7,7 +7,7 @@ def wrappers():
     """Every hand-written kernel's wrapper by name; each counts its launches in ``.launches``."""
     from mmwave_radar_processing_tpu_torch.ops.kernels import (
         altitude_track, aoa_head, beamform, dbs_pick, doppler_az, os_cfar, peaks, rank_select,
-        steering,
+        ransac_fit, steering,
     )
 
     return {"os_cfar_2d_detect": os_cfar.os_cfar_2d_detect,
@@ -19,7 +19,8 @@ def wrappers():
             "prominent_peak": peaks.prominent_peak,
             "steering_phases": steering.steering_phases,
             "dbs_pick": dbs_pick.dbs_pick,
-            "aoa_head": aoa_head.aoa_head}
+            "aoa_head": aoa_head.aoa_head,
+            "ransac_fit": ransac_fit.ransac_fit}
 
 
 def count_launches(fn):

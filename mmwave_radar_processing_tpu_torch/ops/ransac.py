@@ -7,6 +7,14 @@ model is refitted on the winner's inliers (sklearn's ``RANSACRegressor``
 criterion).  Everything is batched over the leading dimensions: one call
 fits every frame and every model of a batch.
 
+Two versions of one function: :func:`ransac_linear_reference`, batched
+PyTorch operations over ``[..., trials, N]`` (the CPU's path, held to the
+JAX package by the tests), and the hand-written kernel
+``csrc/ransac_fit.cu`` (:mod:`.kernels.ransac_fit`), a block a fit and a
+warp a trial with every intermediate on chip.  :func:`ransac_linear` runs
+the reference on CPU tensors and launches the kernel on CUDA tensors; it
+raises on what the kernel does not take and on any other device.
+
 Sampling is Gumbel top-k as a threshold mask: a row is in a trial's sample
 when its score is at least the ``k``-th largest score among the valid rows.
 The scores are an argument, so a test can hand in the JAX package's own
@@ -28,6 +36,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from mmwave_radar_processing_tpu_torch.ops.kernels import ransac_fit as fit_kernel
 
 
 class RansacResult(NamedTuple):
@@ -74,6 +84,12 @@ def _masked_r2(y: torch.Tensor, pred: torch.Tensor, w: torch.Tensor) -> torch.Te
     return torch.where(ss_tot > 0, 1.0 - ss_res / ss_tot, 0.0)
 
 
+def _check_scores(scores: torch.Tensor, lead, max_trials: int, n: int) -> None:
+    if tuple(scores.shape) != (*lead, max_trials, n):
+        raise ValueError(f"scores of shape {tuple(scores.shape)}, expected "
+                         f"{(*lead, max_trials, n)}")
+
+
 def ransac_linear(
     h: torch.Tensor,
     y: torch.Tensor,
@@ -87,6 +103,12 @@ def ransac_linear(
 ) -> RansacResult:
     """Robust fit ``y ~ H @ coef`` over the valid rows, for every leading index.
 
+    On CPU tensors it is :func:`ransac_linear_reference`.  On CUDA tensors
+    the whole fit is one launch of ``csrc/ransac_fit.cu``, which takes
+    ``D <= 3``, ``max_trials <= 32``, the rows within a block's shared memory
+    (:func:`.kernels.ransac_fit.takes`: at most ``MAX_ROWS``), bool ``valid``,
+    float32 ``scores`` and ``min_samples >= 1``, and raises on anything else.
+
     Args:
         h: ``[..., N, D]`` design matrices.
         y: ``[..., N]`` targets.
@@ -97,6 +119,38 @@ def ransac_linear(
             samples.  When None they are drawn with ``generator``, which is
             then required (on ``h``'s device).
     """
+    n = h.shape[-2]
+    lead = h.shape[:-2]
+    if scores is None:
+        if generator is None:
+            raise ValueError("pass the Gumbel scores or a generator to draw them")
+        scores = gumbel((*lead, max_trials, n), generator, device=h.device)
+    _check_scores(scores, lead, max_trials, n)
+    if h.device.type == "cpu":
+        return ransac_linear_reference(h, y, valid, min_samples=min_samples,
+                                       residual_threshold=residual_threshold,
+                                       max_trials=max_trials, scores=scores)
+    if h.device.type != "cuda":
+        raise ValueError(f"no RANSAC kernel for device {h.device}")
+    thr = residual_threshold
+    if isinstance(thr, torch.Tensor):
+        thr = thr.to(device=h.device, dtype=torch.float32)
+    return RansacResult(*fit_kernel.ransac_fit(
+        h.to(torch.float32).contiguous(), y.to(torch.float32).contiguous(),
+        valid.contiguous(), scores.contiguous(), thr, min_samples=min_samples))
+
+
+def ransac_linear_reference(
+    h: torch.Tensor,
+    y: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    min_samples: int = 10,
+    residual_threshold=0.15,
+    max_trials: int = 20,
+    scores: torch.Tensor,
+) -> RansacResult:
+    """:func:`ransac_linear` as batched PyTorch operations, every trial at once, on any device."""
     n, d = h.shape[-2:]
     lead = h.shape[:-2]
     h = h.to(torch.float32)
@@ -104,13 +158,7 @@ def ransac_linear(
     validf = valid.to(torch.float32)
     n_valid = validf.sum(dim=-1)
     k = min(min_samples, n)
-    if scores is None:
-        if generator is None:
-            raise ValueError("pass the Gumbel scores or a generator to draw them")
-        scores = gumbel((*lead, max_trials, n), generator, device=h.device)
-    if tuple(scores.shape) != (*lead, max_trials, n):
-        raise ValueError(f"scores of shape {tuple(scores.shape)}, expected "
-                         f"{(*lead, max_trials, n)}")
+    _check_scores(scores, lead, max_trials, n)
     if isinstance(residual_threshold, torch.Tensor):
         thr = residual_threshold.to(device=h.device, dtype=torch.float32)
     else:  # filled in on the device: no copy from the host

@@ -130,7 +130,10 @@ def build_velocity_analysis_pipeline(
     them all.  ``min_r2_threshold`` and ``min_inlier_percent`` are the
     estimator's gates, ``min_samples``, ``residual_threshold`` (m/s) and
     ``max_trials`` its RANSAC's (upstream's sklearn settings by default).
-    The fit is 3D for the ODS geometry and 2D for the standard one.
+    The fit is 3D for the ODS geometry and 2D for the standard one.  On a
+    CUDA device it is the RANSAC kernel's, which takes ``max_dets`` and
+    ``max_trials`` within :func:`..ops.kernels.ransac_fit.takes` (up to 2048
+    slots at 20 trials) and raises past them.
     """
     ground = build_ground_point_cloud_pipeline(
         cfg, az_antenna_idxs=az_antenna_idxs, el_antenna_idxs=el_antenna_idxs,

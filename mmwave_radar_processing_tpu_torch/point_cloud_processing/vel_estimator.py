@@ -88,7 +88,9 @@ class VelocityEstimator(Processor):
     """Points-only ego-velocity estimator with R^2 and inlier gates, on an explicit ``device``.
 
     Its Gumbel scores come from a CPU ``torch.Generator`` seeded with
-    ``seed``, all drawn in :meth:`_draw_scores`.
+    ``seed``, all drawn in :meth:`_draw_scores`.  On a CUDA device a cloud
+    of more points than the RANSAC kernel takes (``ops.kernels.ransac_fit.takes``)
+    raises.
     """
 
     def __init__(self, config: RadarConfig, min_R2_threshold: float = 0.6,
